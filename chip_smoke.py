@@ -41,7 +41,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (on-chip-measurement table): HBM bytes/s and
+# H100 SXM published peaks (NVIDIA's H100 datasheet): HBM bytes/s and
 # float32 (no tensor core) operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
