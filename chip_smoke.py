@@ -2,21 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and
+Builds the port's CUDA kernels from the sources in this checkout and
 drives the port's paths on ``cuda`` in phases, one JSON line each:
 
 1. device — the card, its power limit and the float32 matmul settings;
 2. build — nvcc of every kernel source (all started together);
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
    width (B=2, S=2048, d_inner=8192, N=16), held against the plain version;
-4. quickstart — profile_pair -> fit_signature -> predict_counters on the
+4. flash_attention — K1 against its plain version at llama3-8b's prefill
+   shape (B=4, H=32, Kv=8, S=2048, dh=128) in bf16 and float32, and at
+   gemma2-9b's (B=1, H=16, Kv=8, S=8192, dh=256, window 4096, soft-cap
+   50) in bf16, with its time, its bound and PyTorch's SDPA beside it;
+5. quickstart — profile_pair -> fit_signature -> predict_counters on the
    E5-2699 v3 (the paper's pipeline; error < 5%);
-5. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
+6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
    median error against the committed values, placements/s, and the
    noise-free sweep held against the same code on the CPU;
-6. service — the advisor service on E7-4830 v3 at 24 threads: batch tier,
+7. service — the advisor service on E7-4830 v3 at 24 threads: batch tier,
    cache tier, a mixed stream, answers held against the CPU, concurrent
-   answers held against serial ones.
+   answers held against serial ones;
+8. lm_reduced — the reduced llama3-8b, gemma2-9b and h2o-danube-1.8b:
+   prefill and generate on the card against the port on the CPU with the
+   same weights;
+9. lm_serve — llama3-8b at full width and depth (random weights from a
+   seed, bf16): init, prefill of 4 x 2048 tokens (K1 launched once per
+   layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
+   logits held against the decode path's.
 
 Then one line listing every kernel of the port with its launches, error
 and times, the card's name and power limit as nvidia-smi prints them,
@@ -41,10 +52,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA's H100 datasheet): HBM bytes/s and
-# float32 (no tensor core) operations/s
+# H100 SXM published peaks (NVIDIA's H100 datasheet): HBM bytes/s,
+# float32 (no tensor core) and dense bf16 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # committed median_error_pct of the three placement-sweep records
 # (benchmarks/sweep_baseline.json), model outputs the port must reproduce
@@ -75,7 +87,9 @@ def sync() -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events,
+    after one warm-up call (a library's first call loads its kernels)."""
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -166,9 +180,10 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 
-    sources = [scan_kernel.SOURCE]
+    sources = [scan_kernel.SOURCE, flash_kernel.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(build.build, sources))
@@ -272,6 +287,91 @@ def phase_selective_scan() -> dict:
         ops_bound_ms=ops_ms,
     )
     return row
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (row, col) pairs one (batch, head) of attention must compute:
+    those its mask leaves visible (right-aligned rows)."""
+    rows = np.arange(sq) + (skv - sq)
+    hi = np.minimum(rows + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_work(q, k, causal: bool, window: int) -> tuple[int, float, float]:
+    """``(ops, bytes_ms, ops_ms)`` of one attention call: 4 * dh
+    operations per visible (row, col) pair (QK^T and PV) at the peak rate
+    of the inputs' type, against q, k, v read once and o written once."""
+    B, H, sq, dh = q.shape
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ops = 4 * dh * B * H * attention_pairs(sq, k.shape[2], causal, window)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return ops, moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
+def phase_flash_attention() -> dict:
+    """K1 against its plain version at the shapes the LM path gives it.
+    Returns the llama3-8b bf16 case's numbers for the kernels line."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [
+        # label, (B, H, Kv, S, dh), dtype, options, tolerance (tests/test_kernels.py)
+        ("llama3-8b prefill bf16", (4, 32, 8, 2048, 128), torch.bfloat16, {}, 2e-2),
+        ("llama3-8b prefill f32", (4, 32, 8, 2048, 128), torch.float32, {}, 2e-5),
+        ("gemma2-9b prefill bf16", (1, 16, 8, 8192, 256), torch.bfloat16,
+         dict(window=4096, logit_cap=50.0), 2e-2),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for label, (B, H, Kv, S, dh), dtype, options, tol in cases:
+        def normal(*shape):
+            return (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+
+        q, k, v = normal(B, H, S, dh), normal(B, Kv, S, dh), normal(B, Kv, S, dh)
+        got = flash_attention(q, k, v, **options)
+        sync()
+        want = attention_ref(q, k, v, **options)
+        sync()
+        diff = (got.float() - want.float()).abs()
+        max_abs = float(diff.max())
+        ok = bool((diff <= tol + tol * want.float().abs()).all())
+        del want, diff
+        check(bool(torch.isfinite(got).all()), f"{label}: K1 output is not finite")
+        check(ok, f"{label}: K1 disagrees with the plain version (max abs {max_abs}, tol {tol})")
+
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **options), 5)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **options), 1)
+        library_ms = None  # SDPA has no soft-cap or right-aligned window
+        if not options:
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10)
+        ops, bytes_ms, ops_ms = flash_work(q, k, True, options.get("window", 0))
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        torch.cuda.empty_cache()
+        results[label] = dict(
+            max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms,
+        )
+        emit(
+            "flash_attention",
+            case=label,
+            shape=dict(B=B, H=H, Kv=Kv, S=S, dh=dh),
+            dtype=str(dtype).removeprefix("torch."),
+            options=options,
+            tolerance=tol,
+            max_abs_err=max_abs,
+            kernel_ms=kernel_ms,
+            plain_ms=plain_ms,
+            library_ms=library_ms,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            bytes_bound_ms=bytes_ms,
+            ops_bound_ms=ops_ms,
+            kernel_tflops=ops / kernel_ms / 1e9,
+        )
+    return results["llama3-8b prefill bf16"]
 
 
 def phase_quickstart() -> None:
@@ -473,6 +573,171 @@ def phase_service() -> None:
     check(tie_rel <= 1e-4, f"a card placement is no tie of the CPU's: rel {tie_rel}")
 
 
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float32 on the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_lm_reduced() -> None:
+    """The reduced configs on the card against the port on the CPU, with
+    the same weights: bf16 prefill logits within rel 2e-2, and with a
+    float32 compute dtype the generated tokens equal."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    B, prompt, gen = 2, 16, 8
+    for name in ("llama3-8b", "gemma2-9b", "h2o-danube-1.8b"):
+        cfg = get_config(name).reduced()
+        cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        card_params = copy.deepcopy(cpu_params).to("cuda")
+        prompts = torch.as_tensor(
+            np.random.default_rng(1).integers(0, cfg.vocab_size, (B, prompt)), dtype=torch.int32
+        )
+        step = make_prefill_step(cfg)
+        before = flash_attention.launches
+        card_logits = step(card_params, {"tokens": prompts.cuda()})
+        sync()
+        launches = flash_attention.launches - before
+        gap = rel_gap(card_logits, step(cpu_params, {"tokens": prompts}))
+
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        card_seqs = generate(cfg32, card_params, prompts, prompt + gen, gen, device="cuda").cpu()
+        cpu_seqs = generate(cfg32, cpu_params, prompts, prompt + gen, gen, device="cpu")
+        equal = bool(torch.equal(card_seqs, cpu_seqs))
+        emit(
+            "lm_reduced",
+            arch=cfg.name,
+            batch=B, prompt=prompt, gen=gen,
+            prefill_logits_rel_gap_vs_cpu=gap,
+            prefill_k1_launches=launches,
+            f32_tokens_equal_cpu=equal,
+        )
+        check(launches == cfg.n_layers, f"{name}: K1 launched {launches} times for {cfg.n_layers} layers")
+        check(gap <= 2e-2, f"{name}: card prefill logits differ from the CPU by rel {gap}")
+        check(equal, f"{name}: float32 tokens differ between the card and the CPU")
+
+
+def phase_lm_serve() -> int:
+    """llama3-8b at full width and depth on one card; returns K1's
+    launches in one prefill call (the main path's run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = get_config("llama3-8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen.manual_seed(0), device="cuda", compute=True)
+    sync()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(sum(p.numel() for p in params.parameters()) == cfg.param_count(), "parameter count")
+
+    # prefill: B=4 x S=2048 random prompts
+    B, S = 4, 2048
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen.manual_seed(1),
+                            device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    step = make_prefill_step(cfg)
+    flash_attention.launches = 0  # the main path's run
+    logits = step(params, batch)
+    sync()
+    path_launches = flash_attention.launches
+    check(path_launches == cfg.n_layers,
+          f"prefill launched K1 {path_launches} times, not once per layer ({cfg.n_layers})")
+    check(logits.shape == (B, cfg.padded_vocab), f"prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+    walls = []
+    for _ in range(3):
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        out = step(params, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        check(flash_attention.launches - before == cfg.n_layers, "K1 launches per prefill")
+        check(bool(torch.isfinite(out).all()), "prefill logits are not finite")
+    prefill_s = min(walls)
+    prefill_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_profile = device_profile(lambda: step(params, batch))
+    # least time: 2 operations per weight and token in the layers' matmuls,
+    # the lm_head for the last position only, and K1's work, at bf16 peak
+    layer_weights = cfg.param_count() - 2 * cfg.padded_vocab * cfg.d_model - cfg.d_model
+    attn_ops = 4 * cfg.head_dim * B * cfg.n_heads * attention_pairs(S, S, True, 0)
+    prefill_ops = (2 * B * S * layer_weights + 2 * B * cfg.d_model * cfg.padded_vocab
+                   + cfg.n_layers * attn_ops)
+    emit(
+        "lm_serve_prefill",
+        arch=cfg.name,
+        params=cfg.param_count(),
+        weight_gb=weight_bytes / 1e9,
+        init_s=init_s,
+        init_peak_gb=init_peak_gb,
+        batch=B, seq=S,
+        k1_launches_per_call=path_launches,
+        prefill_s=prefill_s,
+        prefill_s_runs=walls,
+        prefill_tokens_per_s=B * S / prefill_s,
+        prefill_bound_ms=prefill_ops / BF16_OPS_PER_S * 1e3,
+        prefill_peak_gb=prefill_peak_gb,
+        profile=prefill_profile,
+    )
+
+    # generate: B=4, prompt 64 (teacher-forced through the decode path), 32 new
+    prompt, new = 64, 32
+    p64 = prompts[:, :prompt]
+    generate(cfg, params, p64[:, :2], 4, 2, device="cuda")  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    seqs = generate(cfg, params, p64, prompt + new, new, device="cuda")
+    sync()
+    gen_s = time.perf_counter() - t0
+    steps_run = prompt + new - 1
+    check(seqs.shape == (B, prompt + new) and bool(torch.equal(seqs[:, :prompt], p64)),
+          "generate returned the wrong sequences")
+    check(bool(((seqs >= 0) & (seqs < cfg.padded_vocab)).all()), "token ids out of range")
+
+    # the decode path teacher-forced over the same 64 tokens, then one
+    # profiled step at position 64 against the filled cache
+    decode = make_decode_step(cfg)
+    cache = M.init_cache(cfg, B, prompt + 1, torch.bfloat16, device="cuda")
+    for t in range(prompt):
+        nxt, decode_logits, cache = decode(params, cache, p64[:, t : t + 1], t)
+    sync()
+    step_profile = device_profile(lambda: decode(params, cache, nxt[:, None], prompt))
+    prefill_logits = step(params, {"tokens": p64})
+    gap = rel_gap(decode_logits, prefill_logits)
+    argmax_agree = int((decode_logits.argmax(-1) == prefill_logits.argmax(-1)).sum())
+    emit(
+        "lm_serve_generate",
+        arch=cfg.name,
+        batch=B, prompt=prompt, gen=new,
+        decode_steps=steps_run,
+        generate_s=gen_s,
+        generated_tokens_per_s=B * new / gen_s,
+        ms_per_decode_step=1e3 * gen_s / steps_run,
+        decode_step_weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        step_profile=step_profile,
+        prefill_vs_decode_logits_rel_gap=gap,
+        prefill_vs_decode_argmax_agree=f"{argmax_agree}/{B}",
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    check(gap <= 5e-2, f"prefill and decode logits at position {prompt - 1} differ by rel {gap}")
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -482,17 +747,27 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     scan_row = phase_selective_scan()
+    flash = phase_flash_attention()
     phase_quickstart()
     phase_sweeps()
     phase_service()
-    print(json.dumps({"kernels": [scan_row]}), flush=True)
+    phase_lm_reduced()
+    flash_row = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:113",
+        "launches": phase_lm_serve(),  # one llama3-8b prefill call
+        **flash,
+    }
+    print(json.dumps({"kernels": [scan_row, flash_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": 1,  # the devices this run used: cuda:0 alone
         },
     }), flush=True)
     return 0

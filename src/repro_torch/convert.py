@@ -1,8 +1,8 @@
 """State carried across from the JAX reference into the port.
 
 The reference's objects are handed over as plain Python and numpy values
-(``MachineSpec._asdict()``, workload arrays, signature leaves), so this
-module imports no JAX.  Every numpy array becomes a tensor of the
+(``MachineSpec._asdict()``, workload arrays, signature leaves, an LM's
+parameter tree), so this module imports no JAX.  Every numpy array becomes a tensor of the
 reference's dtype with x64 off: float32 for values, int32 for indices.
 """
 
@@ -84,6 +84,38 @@ def direction_from_arrays(
         local_fraction=f32(local_fraction),
         per_thread_fraction=f32(per_thread_fraction),
     )
+
+
+def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
+    """The port's :class:`~repro_torch.models.model.LM` holding the
+    reference's parameter tree (``init_params``' nested dicts, leaves as
+    numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) value for
+    value and dtype for dtype.  The reference stacks each slot's leaves
+    over groups; layer ``g * group_size + s`` gets group ``g`` of
+    ``groups["slot<s>"]``."""
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.layers import SwiGLU
+    from repro_torch.models.model import LM, Block, check_supported
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev)
+
+    layers = []
+    for g in range(cfg.n_groups):
+        for s in range(cfg.group_size):
+            slot = tree["groups"][f"slot{s}"]
+            mixer, ffn = slot["mixer"], slot["ffn"]
+            layers.append(Block(
+                t(slot["norm1"][g]),
+                Attention(*(t(mixer[n][g]) for n in ("wq", "wk", "wv", "wo"))),
+                t(slot["norm2"][g]),
+                SwiGLU(*(t(ffn[n][g]) for n in ("w_gate", "w_up", "w_down"))),
+            ))
+    lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
+    return LM(t(tree["embed"]["table"]), layers, t(tree["final_norm"]), lm_head)
 
 
 def signature_from_arrays(read, write, *, device=DEFAULT_DEVICE) -> BandwidthSignature:

@@ -1,0 +1,108 @@
+"""Flash attention forward as a hand-written CUDA kernel for Hopper (port
+of the Pallas kernel ``repro.kernels.flash_attention.kernel``).
+
+:func:`flash_attention` launches ``csrc/flash_attention.cu`` (one block
+per (q tile, q-head, batch), the KV walk a loop inside the block, float32
+running max, sum and accumulator; see the source's header for its design
+and its bound on an H100) on CUDA tensors, and runs the plain version
+(:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`) on CPU
+tensors.  There is no fallback between the two: a CUDA call that cannot
+build or launch the kernel raises.  ``flash_attention.launches`` counts
+the kernel's launches.
+
+The kernel reads its operands through their (batch, head, seq) strides,
+so views of the model's (B, S, H, dh) tensors, transposed to (B, H, S,
+dh), go in without a copy; only dh must be contiguous.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128, 256)  # dh values the kernel is instantiated for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    fn = lib.flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    )
+    return lib
+
+
+def _check(q, k, v, out) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d (B, heads, S, dh), got {tuple(t.shape)}")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, q is {q.dtype} on {q.device}")
+    B, H, _, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if H % k.shape[1]:
+        raise ValueError(f"{H} q-heads are not a multiple of {k.shape[1]} kv-heads")
+    if out is not None and (
+        out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+    ):
+        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype} on {q.device}")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, Sq, dh)
+    k: torch.Tensor,  # (B, Kv, Skv, dh)
+    v: torch.Tensor,  # (B, Kv, Skv, dh)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    logit_cap: float = 0.0,
+    out: torch.Tensor | None = None,  # (B, H, Sq, dh), written in place
+) -> torch.Tensor:
+    """Attention output ``(B, H, Sq, dh)`` in q's dtype (``out`` when
+    given).  Queries are right-aligned: row ``r`` sits at position
+    ``r + Skv - Sq``."""
+    _check(q, k, v, out)
+    if q.device.type == "cpu":
+        result = attention_ref(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
+        return result if out is None else out.copy_(result)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    B, H, Sq, dh = q.shape
+    Kv, Skv = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} has no kernel instantiation {HEAD_DIMS}")
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must have a contiguous head dim")
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, H, Kv, Sq, Skv, dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            dh**-0.5, int(causal), int(window), float(logit_cap), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

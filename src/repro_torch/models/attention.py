@@ -1,0 +1,179 @@
+"""Attention (port of ``repro.models.attention``): the prefill path,
+whose core is K1 (``mha_flash``), and the cached decode path.
+
+* Prefill: projections, rotary embeddings, then ``mha_flash``, which on a
+  card launches the hand-written flash-attention kernel and on the CPU
+  runs its plain version.  The reference's prefill core is
+  ``blocked_attention``, the pure-JAX twin of the same kernel; the port
+  uses the kernel itself (GQA without repeating K/V, fully masked tiles
+  skipped).
+* Decode: one new token against a KV cache, PyTorch tensor code (the
+  reference's decode attention is no Pallas kernel either): a grouped
+  einsum over the unrepeated cache, float32 logits, the softmax weights
+  rounded to the cache dtype before the value product, as the reference
+  does.  The cache is updated in place.
+* SWA decode uses a ring buffer of window size.
+* The reference's sharding annotations have no counterpart on one card
+  and are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import mha_flash
+from repro_torch.models.layers import rope, softcap, weight
+
+_NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """One attention layer's projections, ``x @ w`` orientation:
+    ``wq`` (D, H*dh), ``wk``/``wv`` (D, Kv*dh), ``wo`` (H*dh, D)."""
+
+    def __init__(self, wq, wk, wv, wo):
+        super().__init__()
+        self.wq = weight(wq)
+        self.wk = weight(wk)
+        self.wv = weight(wv)
+        self.wo = weight(wo)
+
+
+def init_attn_params(
+    cfg: ModelConfig, generator: torch.Generator, dtype: torch.dtype, device
+) -> Attention:
+    """Random projections with the reference's scales (``D**-0.5`` for
+    q, k, v and ``(H*dh)**-0.5`` for o), drawn in float32 from
+    ``generator`` (on ``device``) and stored in ``dtype``."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def normal(shape, scale):
+        t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return t.mul_(scale).to(dtype)
+
+    return Attention(
+        normal((d, h * dh), d**-0.5),
+        normal((d, kv * dh), d**-0.5),
+        normal((d, kv * dh), d**-0.5),
+        normal((h * dh, d), (h * dh) ** -0.5),
+    )
+
+
+def mha(
+    cfg: ModelConfig,
+    p: Attention,
+    x: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor,  # (S,) absolute positions
+    *,
+    kind: str = "full",  # full | swa
+    causal: bool = True,
+    use_rope: bool = True,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention
+) -> torch.Tensor:
+    """Full multi-head attention layer (projections + K1 core)."""
+    B, S, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(B, S, h, dh)
+    if kv_override is None:
+        k = (x @ p.wk).reshape(B, S, kv, dh)
+        v = (x @ p.wv).reshape(B, S, kv, dh)
+        if use_rope:
+            q = rope(q, positions[None], cfg.rope_theta)
+            k = rope(k, positions[None], cfg.rope_theta)
+    else:
+        k, v = kv_override
+    out = mha_flash(
+        q, k, v,
+        causal=causal,
+        window=cfg.sliding_window if kind == "swa" else 0,
+        logit_cap=cfg.attn_logit_softcap,
+    )
+    return out.reshape(B, S, h * dh) @ p.wo
+
+
+def cross_kv(
+    cfg: ModelConfig, p: Attention, enc_out: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project encoder output once; reused by every decode step."""
+    B, S, _ = enc_out.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p.wk).reshape(B, S, kv, dh)
+    v = (enc_out @ p.wv).reshape(B, S, kv, dh)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_cache, Kv, dh) — ring buffer of size window for SWA
+    v: torch.Tensor
+
+
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, seq_len: int, *, kind: str, dtype: torch.dtype, device
+) -> KVCache:
+    """A zeroed cache; an SWA layer keeps at most ``sliding_window``
+    slots."""
+    size = min(seq_len, cfg.sliding_window) if kind == "swa" else seq_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def mha_decode(
+    cfg: ModelConfig,
+    p: Attention,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: KVCache,
+    pos: int,  # index of the new token
+    *,
+    kind: str = "full",
+    use_rope: bool = True,
+    cross: bool = False,  # attend a static cross cache; no update, no mask
+) -> tuple[torch.Tensor, KVCache]:
+    """Attention of one new token per sequence; writes its K/V into
+    ``cache`` in place (slot ``pos``, or ``pos % window`` in an SWA ring)
+    and returns ``(out (B, 1, D), cache)``."""
+    B = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = h // kv
+    S = cache.k.shape[1]
+    windowed = kind == "swa" and S == cfg.sliding_window
+    at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+
+    q = (x @ p.wq).reshape(B, h, dh)
+    if use_rope and not cross:
+        q = rope(q[:, None], at, cfg.rope_theta)[:, 0]
+
+    valid = None
+    if not cross:
+        k_new = (x @ p.wk).reshape(B, 1, kv, dh)
+        v_new = (x @ p.wv).reshape(B, 1, kv, dh)
+        if use_rope:
+            k_new = rope(k_new, at, cfg.rope_theta)
+        slot = pos % S if windowed else min(pos, S - 1)
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+        idx = torch.arange(S, device=x.device)
+        valid = idx < min(pos + 1, S) if windowed else idx <= pos
+
+    k, v = cache.k, cache.v
+    qg = q.reshape(B, kv, G, dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * (dh**-0.5)
+    if cfg.attn_logit_softcap > 0.0:
+        logits = softcap(logits, cfg.attn_logit_softcap)
+    if valid is not None:
+        logits = torch.where(valid, logits, _NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w.to(v.dtype).float(), v.float())
+    out = out.to(x.dtype).reshape(B, 1, h * dh) @ p.wo
+    return out, cache

@@ -1,0 +1,87 @@
+"""Shared layers (port of ``repro.models.layers``): norms, rotary
+embeddings, the SwiGLU FFN, embeddings.  The reference's sharding
+annotations have no counterpart on one card and are dropped."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def weight(t: torch.Tensor) -> nn.Parameter:
+    """A model leaf: an inference-only parameter."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Embed(nn.Module):
+    """The token table, ``(padded_vocab, d_model)``."""
+
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.table = weight(table)
+
+
+class SwiGLU(nn.Module):
+    """A dense FFN's three matrices, ``x @ w`` orientation."""
+
+    def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor):
+        super().__init__()
+        self.w_gate = weight(w_gate)
+        self.w_up = weight(w_up)
+        self.w_down = weight(w_down)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with the ``(1 + w)`` scale, computed in float32, returned
+    in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + w.float())).to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2-style logit soft capping."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary position embedding with float32 angles, in x's dtype.
+
+    ``x``: (..., seq, heads, head_dim); ``positions``: (..., seq) int.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., None].float() * freq  # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(
+    x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
+) -> torch.Tensor:
+    """SwiGLU FFN: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+    return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` for integer ``tokens`` of any shape."""
+    return table.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, table.shape[1])
+
+
+def unembed(
+    x: torch.Tensor, table: torch.Tensor, *, transpose: bool, cap: float = 0.0
+) -> torch.Tensor:
+    """Project to (padded) vocab logits, soft-capped when ``cap > 0``."""
+    logits = x @ (table.T if transpose else table)
+    if cap > 0.0:
+        logits = softcap(logits, cap)
+    return logits
+

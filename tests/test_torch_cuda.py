@@ -1,6 +1,6 @@
-"""The port on an NVIDIA GPU: the CUDA selective-scan kernel against its
-plain version, and the sweep and the service on the card against the same
-port code on the CPU.  Every test here is marked ``gpu`` and skips
+"""The port on an NVIDIA GPU: the CUDA selective-scan and flash-attention
+kernels against their plain versions, and the sweep, the service and the
+reduced LMs' prefill on the card against the same port code on the CPU.  Every test here is marked ``gpu`` and skips
 without a card; this file imports neither JAX nor the JAX package, so it
 runs where only torch is installed:
 
@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels.flash_attention.kernel as flash_kernel
 import repro_torch.kernels.mamba_scan.kernel as scan_kernel
+from repro_torch.kernels.flash_attention.ops import mha_flash
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mamba_scan.ops import ssm_scan
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
@@ -64,6 +67,75 @@ def test_scan_kernel_rejects_state_width_without_instantiation(cuda):
     dt, a, b, c, x = _inputs(2, 1, 16, 8, 5, cuda)
     with pytest.raises(ValueError):
         scan_kernel.selective_scan(dt, a, b, c, x)
+
+
+FLASH_CASES = [
+    # B, H, Kv, Sq, Skv, dh, options: the CPU parity sweep plus ragged sizes
+    (1, 4, 4, 128, 128, 64, {}),
+    (2, 8, 2, 128, 128, 64, {}),
+    (1, 4, 1, 64, 256, 32, {}),
+    (1, 2, 2, 256, 256, 128, {}),
+    (1, 4, 2, 128, 128, 64, dict(window=32)),
+    (1, 4, 2, 128, 128, 64, dict(window=64)),
+    (1, 2, 2, 64, 64, 32, dict(logit_cap=30.0)),
+    (1, 2, 2, 64, 64, 32, dict(causal=False)),
+    (1, 4, 2, 300, 300, 64, {}),
+    (1, 4, 2, 77, 301, 16, dict(window=40)),
+    (1, 4, 2, 300, 300, 256, dict(window=100, logit_cap=50.0)),
+]
+
+
+def _qkv(seed, B, H, Kv, Sq, Skv, dh, dtype, device):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.as_tensor((rng.standard_normal(shape) * 0.5).astype(np.float32), device=device).to(dtype)
+        for shape in ((B, H, Sq, dh), (B, Kv, Skv, dh), (B, Kv, Skv, dh))
+    )
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(cuda, dtype, tol, B, H, Kv, Sq, Skv, dh, kwargs):
+    """Ragged sizes included: 300 and 77 / 301 rows are no multiple of the
+    64-row (32 at dh 256) tiles."""
+    q, k, v = _qkv(0, B, H, Kv, Sq, Skv, dh, dtype, cuda)
+    before = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, **kwargs)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_mha_flash_on_the_card_counts_and_matches_cpu(cuda):
+    q, k, v = (t.transpose(1, 2).contiguous() for t in _qkv(1, 2, 8, 2, 96, 96, 64, torch.bfloat16, cuda))
+    before = flash_kernel.flash_attention.launches
+    got = mha_flash(q, k, v, causal=True, window=48)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    want = mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=True, window=48)
+    assert flash_kernel.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "gemma2-9b", "h2o-danube-1.8b"])
+def test_reduced_prefill_on_the_card_matches_cpu(cuda, name):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = get_config(name).reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    step = make_prefill_step(cfg)
+    want = step(params, {"tokens": tokens})
+    before = flash_kernel.flash_attention.launches
+    got = step(params.to(cuda), {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + cfg.n_layers
+    scale = float(want.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2 * scale
 
 
 def test_sweep_on_the_card_matches_cpu(cuda):

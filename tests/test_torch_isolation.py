@@ -35,6 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
     modules = _port_modules()
     assert "repro_torch.serve.service" in modules
     assert "repro_torch.kernels.mamba_scan.kernel" in modules
+    assert "repro_torch.kernels.flash_attention.kernel" in modules
+    assert "repro_torch.launch.serve" in modules
     script = textwrap.dedent(
         f"""
         import importlib, importlib.abc, sys
@@ -91,8 +93,14 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     from repro_torch.core.numa import E5_2630_V3, mixed_workload, symmetric_placement
     from repro_torch.core.numa.benchmarks import benchmark_workload
     from repro_torch.core.numa.evaluate import enumerate_placements, evaluate_suite
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
     from repro_torch.serve import AdvisorService
 
+    cfg = get_config("llama3-8b").reduced()
+    cpu_params = M.init_params(cfg, torch.Generator(), device="cpu")
+    prompts = torch.zeros((1, 4), dtype=torch.int32)
     assert repro_torch.DEFAULT_DEVICE == "cuda"
     calls = [
         lambda: repro_torch.resolve_device(),
@@ -103,6 +111,9 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
         lambda: evaluate_suite(E5_2630_V3),
         lambda: E5_2630_V3.bank_read_caps(),
         lambda: AdvisorService(),
+        lambda: M.init_params(cfg, torch.Generator()),
+        lambda: M.init_cache(cfg, 1, 8, torch.bfloat16),
+        lambda: generate(cfg, cpu_params, prompts, 6, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -117,15 +128,25 @@ def test_cpu_runs_only_on_request(no_cuda):
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_advisor_cli_defaults_to_cuda(no_cuda):
-    """The CLI's default device is the card: without one it fails."""
-    proc = subprocess.run(
+def _cli_without_cuda(module: str, args: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(
         [sys.executable, "-c",
          "import sys, torch; torch.cuda.is_available = lambda: False; "
-         "sys.argv = ['advisor_serve', '--queries', '4']; "
-         "from repro_torch.launch.advisor_serve import main; main()"],
+         f"sys.argv = [{module!r}, *{args!r}]; "
+         f"from repro_torch.launch.{module} import main; main()"],
         capture_output=True, text=True, timeout=120, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
+
+
+def test_advisor_cli_defaults_to_cuda(no_cuda):
+    """The CLI's default device is the card: without one it fails."""
+    proc = _cli_without_cuda("advisor_serve", ["--queries", "4"])
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_serve_cli_defaults_to_cuda(no_cuda):
+    proc = _cli_without_cuda("serve", ["--reduced", "--gen", "2"])
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr

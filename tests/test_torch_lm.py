@@ -1,0 +1,245 @@
+"""The port's LM serving path against the reference, on the reduced
+configs of llama3-8b, gemma2-9b, h2o-danube-1.8b and deepseek-7b.
+
+The reference's ``init_params`` tree is carried into the port by
+``lm_params_from_reference`` (numpy, value for value); token inputs are
+numpy-seeded.  Both sides then run ``forward``, ``prefill``, a sequence
+of ``decode_step``s against a bf16 cache and ``generate``:
+
+* float32 ``compute_dtype``: logits within rel 1e-4 of the largest
+  reference logit, tokens equal;
+* bfloat16 ``compute_dtype``: logits within 2e-2 elementwise (atol and
+  rtol, the repo's bf16 tolerance, ``tests/test_kernels.py``).  Each side
+  rounds its bf16 activations in its own places: XLA on the CPU rounds
+  every op of ``silu``'s ``1 / (1 + exp(-x))`` to bf16, torch computes
+  ``silu`` in float32 and rounds once, so gemma2's decode logits drift
+  up to 2.0e-2 of their scale from the reference.
+
+The reference's attention core on this path is ``blocked_attention``;
+the port's is K1's plain version (the CPU path of ``mha_flash``).
+Archs outside this slice raise ``NotImplementedError``.  The configs
+themselves (all ten, published and reduced) and the cross-attention
+pieces the enc-dec slice will use are held against the reference too.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_rel_to_scale
+from repro.configs.base import SHAPES as REF_SHAPES
+from repro.configs.base import get_config as ref_get_config
+from repro.configs.base import list_configs as ref_list_configs
+from repro.launch import serve as ref_serve
+from repro.launch import steps as ref_steps
+from repro.models import attention as RA
+from repro.models import model as RM
+from repro_torch.configs.base import SHAPES, get_config, list_configs
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.launch import steps
+from repro_torch.launch.serve import generate
+from repro_torch.models import attention as PA
+from repro_torch.models import model as M
+
+ARCHS = ["llama3-8b", "gemma2-9b", "h2o-danube-1.8b", "deepseek-7b"]
+F32_RTOL = 1e-4
+BF16_TOL = 2e-2
+B, S = 2, 40  # S > the reduced sliding window (32): the SWA ring wraps
+PROMPT, GEN = 16, 8
+DECODE_STEPS = 36
+
+
+def _assert_logits(got, want, compute_dtype, what):
+    if compute_dtype == "float32":
+        assert_rel_to_scale(got, want, rtol=F32_RTOL, what=what)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL, rtol=BF16_TOL, err_msg=what)
+
+
+def _configs(name, compute_dtype):
+    ref = dataclasses.replace(ref_get_config(name).reduced(), compute_dtype=compute_dtype)
+    port = dataclasses.replace(get_config(name).reduced(), compute_dtype=compute_dtype)
+    return ref, port
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name, compute_dtype):
+    """The reference's results for one (arch, compute dtype), computed
+    once per test process, with the tokens and parameters they used."""
+    rcfg, pcfg = _configs(name, compute_dtype)
+    rparams = RM.init_params(rcfg, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(1).integers(0, rcfg.vocab_size, (B, S)).astype(np.int32)
+
+    logits, _ = jax.jit(lambda p, t: RM.forward(rcfg, p, {"tokens": t}))(rparams, tokens)
+    last = jax.jit(ref_steps.make_prefill_step(rcfg))(rparams, {"tokens": tokens})
+    step = jax.jit(ref_steps.make_decode_step(rcfg))
+    cache = RM.init_cache(rcfg, B, S, jnp.bfloat16)
+    decoded = []
+    for t in range(DECODE_STEPS):
+        nxt, lg, cache = step(rparams, cache, tokens[:, t : t + 1], jnp.asarray(t, jnp.int32))
+        decoded.append((np.asarray(nxt), np.asarray(lg, np.float32)))
+    seqs = ref_serve.generate(
+        rcfg, RM.cast_for_compute(rcfg, rparams), jnp.asarray(tokens[:, :PROMPT]), PROMPT + GEN, GEN
+    )
+    port_params = lm_params_from_reference(pcfg, jax.tree.map(np.asarray, rparams), device="cpu")
+    return dict(
+        pcfg=pcfg, params=port_params, tokens=tokens,
+        logits=np.asarray(logits, np.float32), prefill=np.asarray(last, np.float32),
+        decoded=decoded, seqs=np.asarray(seqs),
+    )
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_forward_matches_reference(name, compute_dtype):
+    c = _case(name, compute_dtype)
+    logits, aux = M.forward(c["pcfg"], c["params"], {"tokens": torch.as_tensor(c["tokens"])})
+    assert logits.dtype == getattr(torch, compute_dtype)
+    assert float(aux) == 0.0
+    _assert_logits(logits, c["logits"], compute_dtype, name)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_prefill_matches_reference(name, compute_dtype):
+    c = _case(name, compute_dtype)
+    step = steps.make_prefill_step(c["pcfg"])
+    got = step(c["params"], {"tokens": torch.as_tensor(c["tokens"])})
+    assert got.shape == (B, c["pcfg"].padded_vocab)
+    _assert_logits(got, c["prefill"], compute_dtype, name)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_decode_steps_match_reference(name, compute_dtype):
+    """Teacher-forced decode through the bf16 cache, past the SWA
+    window: every step's logits, and in float32 its argmax token."""
+    c = _case(name, compute_dtype)
+    cfg = c["pcfg"]
+    cache = M.init_cache(cfg, B, S, torch.bfloat16, device="cpu")
+    step = steps.make_decode_step(cfg)
+    tokens = torch.as_tensor(c["tokens"])
+    for t, (want_tok, want_logits) in enumerate(c["decoded"]):
+        nxt, logits, cache = step(c["params"], cache, tokens[:, t : t + 1], t)
+        assert nxt.dtype == torch.int32
+        _assert_logits(logits, want_logits, compute_dtype, f"{name} step {t}")
+        if compute_dtype == "float32":
+            np.testing.assert_array_equal(nxt.numpy(), want_tok)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_generate_matches_reference(name, compute_dtype):
+    c = _case(name, compute_dtype)
+    cfg = c["pcfg"]
+    params = M.cast_for_compute(cfg, c["params"])
+    seqs = generate(cfg, params, torch.as_tensor(c["tokens"][:, :PROMPT]), PROMPT + GEN, GEN, device="cpu")
+    assert seqs.dtype == torch.int32 and seqs.shape == (B, PROMPT + GEN)
+    np.testing.assert_array_equal(seqs[:, :PROMPT].numpy(), c["tokens"][:, :PROMPT])
+    if compute_dtype == "float32":
+        np.testing.assert_array_equal(seqs.numpy(), c["seqs"])
+
+
+def test_params_mirror_reference_tree_and_count():
+    """Names, shapes and dtypes of the converted tree; the port's own
+    ``init_params`` has the same leaves and ``cfg.param_count()``
+    parameters; ``cast_for_compute`` keeps the norms in float32 and is
+    the identity on an already cast tree."""
+    c = _case("gemma2-9b", "bfloat16")
+    cfg, params = c["pcfg"], c["params"]
+    names = dict(params.named_parameters())
+    assert "lm_head" not in names  # gemma2 ties its embeddings
+    assert {"embed.table", "final_norm", "layers.0.norm1", "layers.0.mixer.wq",
+            "layers.3.ffn.w_down", "layers.3.norm2"} <= set(names)
+    own = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert {n: p.shape for n, p in own.named_parameters()} == {n: p.shape for n, p in names.items()}
+    assert sum(p.numel() for p in own.parameters()) == cfg.param_count()
+    cast = M.cast_for_compute(cfg, own)
+    assert cast.layers[0].mixer.wq.dtype == torch.bfloat16
+    assert cast.layers[0].norm1.dtype == torch.float32 and cast.final_norm is own.final_norm
+    assert own.layers[0].mixer.wq.dtype == torch.float32  # the master tree is untouched
+    assert M.cast_for_compute(cfg, cast) is cast
+    compute = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", compute=True)
+    for (n, a), (_, b) in zip(cast.named_parameters(), compute.named_parameters()):
+        assert a.dtype == b.dtype, n
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_llama3_8b_full_size_counts():
+    cfg = get_config("llama3-8b")
+    assert cfg.param_count() == 8_030_261_248
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.group_size) == (32, 8, 128, 1)
+
+
+@pytest.mark.parametrize(
+    "name", ["falcon-mamba-7b", "jamba-1.5-large-398b", "mixtral-8x22b",
+             "qwen3-moe-30b-a3b", "whisper-medium", "internvl2-2b"],
+)
+def test_archs_outside_the_slice_raise(name):
+    cfg = get_config(name).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.init_cache(cfg, 1, 8, torch.bfloat16, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.forward(cfg, None, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+
+
+ALL_ARCHS = ["deepseek-7b", "falcon-mamba-7b", "gemma2-9b", "h2o-danube-1.8b", "internvl2-2b",
+             "jamba-1.5-large-398b", "llama3-8b", "mixtral-8x22b", "qwen3-moe-30b-a3b",
+             "whisper-medium"]
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
+def test_configs_match_reference(name):
+    """Every field, the derived layer pattern and the parameter count of
+    the published and the reduced config."""
+    assert list_configs() == ref_list_configs() == sorted(ALL_ARCHS)
+    for ref, port in [(ref_get_config(name), get_config(name)),
+                      (ref_get_config(name).reduced(), get_config(name).reduced())]:
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+        assert (port.group_size, port.n_groups, port.head_dim, port.padded_vocab) == (
+            ref.group_size, ref.n_groups, ref.head_dim, ref.padded_vocab)
+        assert [M.slot_kinds(port, s) for s in range(port.group_size)] == [
+            RM.slot_kinds(ref, s) for s in range(ref.group_size)]
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in REF_SHAPES.items()}
+
+
+def test_cross_attention_pieces_match_reference():
+    """``cross_kv``, ``mha`` over given K/V (non-causal, no rotary) and
+    ``mha_decode`` against a static cross cache, in float32."""
+    rcfg, pcfg = _configs("llama3-8b", "float32")
+    rng = np.random.default_rng(3)
+    d, h, kv, dh = pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
+    w = {n: (rng.standard_normal(s) * d**-0.5).astype(np.float32)
+         for n, s in (("wq", (d, h * dh)), ("wk", (d, kv * dh)), ("wv", (d, kv * dh)),
+                      ("wo", (h * dh, d)))}
+    enc = rng.standard_normal((2, 12, d)).astype(np.float32)
+    x = rng.standard_normal((2, 5, d)).astype(np.float32)
+    pp = PA.Attention(*(torch.as_tensor(w[n]) for n in ("wq", "wk", "wv", "wo")))
+
+    k, v = PA.cross_kv(pcfg, pp, torch.as_tensor(enc))
+    rk, rv = RA.cross_kv(rcfg, w, jnp.asarray(enc))
+    assert_rel_to_scale(k, rk, rtol=1e-5)
+    assert_rel_to_scale(v, rv, rtol=1e-5)
+    positions = np.arange(5)
+    got = PA.mha(pcfg, pp, torch.as_tensor(x), torch.as_tensor(positions), causal=False,
+                 use_rope=False, kv_override=(k, v))
+    want = RA.mha(rcfg, w, jnp.asarray(x), jnp.asarray(positions), causal=False,
+                  use_rope=False, kv_override=(rk, rv))
+    assert_rel_to_scale(got, want, rtol=1e-5)
+
+    cache = PA.KVCache(k.clone(), v.clone())
+    got, same = PA.mha_decode(pcfg, pp, torch.as_tensor(x[:, :1]), cache, 3, cross=True,
+                              use_rope=False)
+    want, _ = RA.mha_decode(rcfg, w, jnp.asarray(x[:, :1]), RA.KVCache(rk, rv),
+                            jnp.asarray(3, jnp.int32), cross=True, use_rope=False)
+    assert same is cache and torch.equal(cache.k, k)  # a cross cache is read, not written
+    assert_rel_to_scale(got, want, rtol=1e-5)
