@@ -238,9 +238,10 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int BK = DH > 128 ? 32 : 64;
   constexpr size_t smem = smem_bytes<DH, BQ, BK>();
   auto kernel = flash_fwd_kernel<T, DH, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
+  // the shared-memory limit belongs to the instantiation: raised once
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if (attr_err != cudaSuccess) return attr_err;
   const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();

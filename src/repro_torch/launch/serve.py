@@ -31,7 +31,8 @@ def generate(cfg, params, prompts, max_len, gen_tokens, *, device=DEFAULT_DEVICE
     prompts = prompts.to(dev)
     B, P = prompts.shape
     cache = M.init_cache(cfg, B, max_len, torch.bfloat16, device=dev)
-    step = steps_lib.make_decode_step(cfg)
+    params = M.cast_for_compute(cfg, params)  # once, not per step
+    step = steps_lib.make_decode_step(cfg, cast=False)
     tok = prompts[:, :1]
     out = [tok[:, 0]]
     for t in range(P + gen_tokens - 1):

@@ -240,11 +240,16 @@ def decode_step(
     cache: list[attn.KVCache],
     tokens: torch.Tensor,  # (B, 1) int
     pos: int,  # position of this token
+    *,
+    cast: bool = True,
 ) -> tuple[torch.Tensor, list[attn.KVCache]]:
     """One token for every sequence in the batch against the cache.
     Returns ``(logits (B, padded vocab), cache)``; the cache is updated in
-    place (the reference returns a new one)."""
-    params = _step_params(cfg, params)
+    place (the reference returns a new one).  ``cast=False`` takes
+    ``params`` as :func:`cast_for_compute` returned them, so a decode loop
+    casts once rather than walking every parameter on every step."""
+    if cast:
+        params = _step_params(cfg, params)
     x = _embed_tokens(cfg, params, tokens)
     for i, layer in enumerate(params.layers):
         _, akind, _ = slot_kinds(cfg, i % cfg.group_size)

@@ -85,17 +85,23 @@ FLASH_CASES = [
 ]
 
 
-def _qkv(seed, B, H, Kv, Sq, Skv, dh, dtype, device):
+def _qkv(seed, B, H, Kv, Sq, Skv, dh, dtype, device, qk_std=0.5):
     rng = np.random.default_rng(seed)
+    stds = (qk_std, qk_std, 0.5)
     return tuple(
-        torch.as_tensor((rng.standard_normal(shape) * 0.5).astype(np.float32), device=device).to(dtype)
-        for shape in ((B, H, Sq, dh), (B, Kv, Skv, dh), (B, Kv, Skv, dh))
+        torch.as_tensor((rng.standard_normal(shape) * std).astype(np.float32), device=device).to(dtype)
+        for shape, std in zip(((B, H, Sq, dh), (B, Kv, Skv, dh), (B, Kv, Skv, dh)), stds)
     )
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+# the plain version computes in float32 too and rounds to q's dtype, so
+# bf16 outputs differ by at most one ulp (2^-7 relative)
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=4e-3, rtol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", FLASH_CASES)
-def test_flash_kernel_matches_plain_version(cuda, dtype, tol, B, H, Kv, Sq, Skv, dh, kwargs):
+def test_flash_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, kwargs):
     """Ragged sizes included: 300 and 77 / 301 rows are no multiple of the
     64-row (32 at dh 256) tiles."""
     q, k, v = _qkv(0, B, H, Kv, Sq, Skv, dh, dtype, cuda)
@@ -105,7 +111,29 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, tol, B, H, Kv, Sq, Skv,
     assert flash_kernel.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, **kwargs)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "H,Kv,S,dh,qk_std,kwargs",
+    [
+        (4, 2, 128, 64, 2.0, dict(logit_cap=5.0)),  # scores of std 4 against a cap of 5
+        (4, 2, 300, 256, 5.0, dict(window=100, logit_cap=50.0)),  # gemma2's cap, std 25
+    ],
+)
+def test_flash_kernel_soft_cap_and_window_move_the_output(cuda, dtype, H, Kv, S, dh, qk_std, kwargs):
+    """Scores large enough for the soft-cap to act: the kernel matches the
+    plain version, and the plain version without the cap (or the window)
+    lies outside the tolerance, so a kernel that ignored it would fail."""
+    q, k, v = _qkv(4, 1, H, Kv, S, S, dh, dtype, cuda, qk_std=qk_std)
+    got = flash_kernel.flash_attention(q, k, v, **kwargs)
+    want = attention_ref(q, k, v, **kwargs)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    for name in kwargs:
+        without = attention_ref(q, k, v, **{o: x for o, x in kwargs.items() if o != name})
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(without.float(), want.float(), **FLASH_TOL[dtype])
 
 
 def test_mha_flash_on_the_card_counts_and_matches_cpu(cuda):
@@ -116,7 +144,7 @@ def test_mha_flash_on_the_card_counts_and_matches_cpu(cuda):
     assert flash_kernel.flash_attention.launches == before + 1
     want = mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=True, window=48)
     assert flash_kernel.flash_attention.launches == before + 1
-    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "gemma2-9b", "h2o-danube-1.8b"])
