@@ -6,14 +6,17 @@ Builds the port's CUDA kernels from the sources in this checkout and
 drives the port's paths on ``cuda`` in phases, one JSON line each:
 
 1. device — the card, its power limit and the float32 matmul settings;
-2. build — nvcc of every kernel source (all started together);
+2. build — nvcc of every kernel source (all started together), with each
+   library's tensor-core instructions (HGMMA, HMMA) counted in its SASS;
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
    width (B=2, S=2048, d_inner=8192, N=16), held against the plain version;
 4. flash_attention — K1 against its plain version at llama3-8b's prefill
    shape (B=4, H=32, Kv=8, S=2048, dh=128) and at gemma2-9b's (B=1, H=16,
    Kv=8, S=8192, dh=256, window 4096, soft-cap 50, scores driven into the
-   cap), each in bf16 and float32, with its time, its bound and PyTorch's
-   SDPA beside it;
+   cap), each in bf16 (the tensor-core kernel) and float32 (the CUDA-core
+   kernel), and at h2o-danube-1.8b's (B=1, H=32, Kv=8, S=8192, dh=80,
+   window 4096) in bf16, with its time, its bound and PyTorch's SDPA
+   beside it;
 5. quickstart — profile_pair -> fit_signature -> predict_counters on the
    E5-2699 v3 (the paper's pipeline; error < 5%);
 6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
@@ -25,7 +28,10 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
 8. lm_reduced — the reduced llama3-8b, gemma2-9b and h2o-danube-1.8b:
    prefill and generate on the card against the port on the CPU with the
    same weights;
-9. lm_serve — llama3-8b at full width and depth (random weights from a
+9. lm_danube — h2o-danube-1.8b at full width and depth (random bf16
+   weights from a seed): prefill of 2 x 8192 tokens, where the 4096-token
+   window acts, K1 (dh 80) launched once per layer;
+10. lm_serve — llama3-8b at full width and depth (random weights from a
    seed, bf16): init, prefill of 4 x 2048 tokens (K1 launched once per
    layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
    logits held against the decode path's.
@@ -40,6 +46,8 @@ without the repository's ``src/`` beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -101,12 +109,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, watch: str | None = None) -> dict:
     """Where one call of ``fn`` spends its time: the host wall time (best
     of three unprofiled calls, each ending in a synchronise), the device
     time of the kernels one profiled call launched (the union of their
     intervals, from ``torch.profiler``), the device's busy share of the
-    wall time, the three kernels with the most device time, and the
+    wall time, the three kernels with the most device time, the device
+    time and count of the kernels whose name holds ``watch``, and the
     host's most frequent CUDA runtime calls (launches, synchronisations,
     copies)."""
     from torch.autograd import DeviceType
@@ -141,6 +150,7 @@ def device_profile(fn) -> dict:
         if e.device_type == DeviceType.CPU and e.name.startswith("cuda")
     )
     device_ms = busy_us / 1e3 if spans else None
+    watched = [(ms, n) for name, (ms, n) in per_name.items() if watch and watch in name]
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -149,6 +159,8 @@ def device_profile(fn) -> dict:
         "top_kernels": [
             {"name": name[:80], "ms": ms, "count": count} for name, (ms, count) in top
         ],
+        "watched": {"name": watch, "ms": sum(ms for ms, _ in watched),
+                    "count": sum(n for _, n in watched)} if watch else None,
         "runtime_calls": dict(runtime.most_common(5)),
     }
 
@@ -179,25 +191,38 @@ def phase_device() -> str:
     return smi
 
 
+def tensor_core_ops(lib: Path) -> dict[str, int]:
+    """The tensor-core instructions in a library's SASS: HGMMA (wgmma) and
+    HMMA (mma.sync)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 
-    sources = [scan_kernel.SOURCE, flash_kernel.SOURCE]
+    sources = [scan_kernel.SOURCE, *flash_kernel.SOURCES.values()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(build.build, sources))
     seconds = time.perf_counter() - t0
     for lib in libs:
         check(lib.exists(), f"{lib} was not built")
+    sass = {src.name: tensor_core_ops(lib) for src, lib in zip(sources, libs)}
     emit(
         "build",
         seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in libs],
+        tensor_core_instructions=sass,
         ptxas=[line for s in sources for line in build.BUILD_LOGS.get(s.name, "").splitlines()
-               if "ptxas" in line],
+               if "ptxas" in line or "spill" in line],
     )
+    bf16 = flash_kernel.SOURCES[torch.bfloat16].name
+    check(sass[bf16]["HGMMA"] > 0, f"{bf16} has no wgmma (HGMMA) in its SASS")
 
 
 def scan_inputs(B, S, di, n, seed, device):
@@ -310,59 +335,133 @@ def flash_work(q, k, causal: bool, window: int) -> tuple[int, float, float]:
     return ops, moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
+def tolerance_used(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
+    """The largest ``|got - want| / (atol + rtol * |want|)``, in float32:
+    at most 1 where ``got`` lies within the tolerance of ``want``."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> bool:
     """Elementwise ``|got - want| <= atol + rtol * |want|``, in float32."""
-    got, want = got.float(), want.float()
-    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+    return tolerance_used(got, want, atol, rtol) <= 1.0
 
 
 # K1's tolerances against its plain version (which also computes in float32
 # and rounds to q's dtype): float32 that of tests/test_kernels.py; bf16 one
 # output ulp (at most 2^-7 relative) plus twice the largest error read on
-# the H100 at 0.5-scaled inputs (1.95e-3).
+# the H100 at 0.5-scaled inputs (1.95e-3).  The bf16 kernel also rounds its
+# probabilities to bf16 (2^-9 relative a weight) inside that tolerance.
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 1e-2)}
+
+
+def chunked_ref(q, k, v, options: dict, rows: int) -> torch.Tensor:
+    """The plain version over q's rows, ``rows`` at a time, for causal
+    attention: chunk ``[a, b)`` sees the keys up to its last row's
+    position, so right-aligning it against ``k[:, :, :b + Skv - Sq]`` puts
+    its rows where they sit in the whole."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    sq, skv = q.shape[2], k.shape[2]
+    out = torch.empty_like(q)
+    for a in range(0, sq, rows):
+        b = min(a + rows, sq)
+        end = b + skv - sq
+        out[:, :, a:b] = attention_ref(q[:, :, a:b], k[:, :, :end], v[:, :, :end], **options)
+    return out
+
+
+def plain_bf16_probabilities(q, k, v) -> torch.Tensor:
+    """The plain version (causal, no window or cap) with the bf16 kernel's
+    one rounding the plain version lacks: the unnormalised probabilities
+    rounded to bf16 before the P V product, their row sums kept in
+    float32."""
+    H, sq, dh = q.shape[1], q.shape[2], q.shape[3]
+    kv, skv = k.shape[1], k.shape[2]
+    k, v = (t.repeat_interleave(H // kv, dim=1).float() for t in (k, v))
+    logits = q.float() @ k.transpose(-1, -2) * dh**-0.5
+    rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    logits = torch.where(torch.arange(skv, device=q.device) <= rows, logits, -1e30)
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return ((w.to(torch.bfloat16).float() @ v) / w.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 def phase_flash_attention() -> dict:
     """K1 against its plain version at the shapes the LM path gives it.
     q and k are drawn at a scale that gives the scores a spread like a
-    trained model's (llama3) or that drives them into gemma2's soft-cap,
-    and the check proves that the window and the cap each move the
-    output past the tolerance.  Returns the llama3-8b bf16 case's numbers
-    for the kernels line."""
+    trained model's (llama3, danube) or that drives them into gemma2's
+    soft-cap, and the check proves that the window and the cap each move
+    the output past the tolerance.  danube's shape is held against the
+    plain version run in 1,024-row chunks (whole, it would materialise
+    8.6 GB of logits several times over).  SDPA is the library yardstick
+    where it computes the same function: causal alone, or with a window as
+    a dense mask (no call takes the soft-cap).  At llama3's bf16 shape the
+    plain version with bf16 probabilities shows what the kernel's rounding
+    of P costs.  Returns the llama3-8b bf16 case's numbers for the kernels
+    line."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gemma2 = dict(window=4096, logit_cap=50.0)
+    danube = dict(window=4096)
     cases = [
         # label, (B, H, Kv, S, dh), dtype, options, std of q and k (scores:
-        # std**2 after the dh**-0.5 scale)
-        ("llama3-8b prefill bf16", (4, 32, 8, 2048, 128), torch.bfloat16, {}, 1.0),
-        ("llama3-8b prefill f32", (4, 32, 8, 2048, 128), torch.float32, {}, 1.0),
-        ("gemma2-9b prefill bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0),
-        ("gemma2-9b prefill f32", (1, 16, 8, 8192, 256), torch.float32, gemma2, 5.0),
+        # std**2 after the dh**-0.5 scale), rows per plain-version chunk
+        ("llama3-8b prefill bf16", (4, 32, 8, 2048, 128), torch.bfloat16, {}, 1.0, None),
+        ("llama3-8b prefill f32", (4, 32, 8, 2048, 128), torch.float32, {}, 1.0, None),
+        ("gemma2-9b prefill bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0, None),
+        ("gemma2-9b prefill f32", (1, 16, 8, 8192, 256), torch.float32, gemma2, 5.0, None),
+        ("h2o-danube-1.8b prefill bf16", (1, 32, 8, 8192, 80), torch.bfloat16, danube, 1.0, 1024),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for label, (B, H, Kv, S, dh), dtype, options, std in cases:
+    for label, (B, H, Kv, S, dh), dtype, options, std, chunk in cases:
         atol, rtol = FLASH_TOL[dtype]
 
         def normal(shape, scale):
             return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
+        def plain():
+            if chunk:
+                return chunked_ref(q, k, v, options, chunk)
+            return attention_ref(q, k, v, **options)
+
         q, k = normal((B, H, S, dh), std), normal((B, Kv, S, dh), std)
         v = normal((B, Kv, S, dh), 0.5)
+        # SDPA has no soft-cap; a window it takes as a dense (S, S) mask,
+        # built here, outside the timed call
+        library = None
+        if options.get("window") and not options.get("logit_cap"):
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - options["window"])
+            library = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        elif not options:
+            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
         got = flash_attention(q, k, v, **options)
         sync()
-        want = attention_ref(q, k, v, **options)
+        want = plain()
         sync()
         max_abs = float((got.float() - want.float()).abs().max())
-        ok = within(got, want, atol, rtol)
+        used = tolerance_used(got, want, atol, rtol)
+        library_err = None
+        if library is not None:
+            library_err = float((library().float() - want.float()).abs().max())
+        p_rounding = {}
+        if dtype == torch.bfloat16 and not options:
+            # what rounding P to bf16 alone moves the plain version by, and
+            # how far the kernel lies from the plain version that does so
+            rounded = plain_bf16_probabilities(q, k, v)
+            p_rounding = dict(
+                max_abs_err=float((rounded.float() - want.float()).abs().max()),
+                tolerance_used=tolerance_used(rounded, want, atol, rtol),
+                kernel_max_abs_err=float((got.float() - rounded.float()).abs().max()),
+            )
+            del rounded
         del want
         check(bool(torch.isfinite(got).all()), f"{label}: K1 output is not finite")
-        check(ok, f"{label}: K1 disagrees with the plain version "
-                  f"(max abs {max_abs}, atol {atol}, rtol {rtol})")
+        check(used <= 1.0, f"{label}: K1 disagrees with the plain version "
+                           f"(max abs {max_abs}, atol {atol}, rtol {rtol})")
         # a kernel that ignored an option would fail the check above: on
         # the last 512 rows, which the window reaches, the plain version
         # without that option lies outside the tolerance
@@ -377,10 +476,8 @@ def phase_flash_attention() -> dict:
         del tail, want_tail
 
         kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **options), 5)
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **options), 1)
-        library_ms = None  # SDPA has no soft-cap or right-aligned window
-        if not options:
-            library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms = None if library is None else cuda_ms(library, 10)
         ops, bytes_ms, ops_ms = flash_work(q, k, True, options.get("window", 0))
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -398,11 +495,15 @@ def phase_flash_attention() -> dict:
             qk_std=std,
             atol=atol,
             rtol=rtol,
+            plain_rows_per_chunk=chunk,
             max_abs_err=max_abs,
+            tolerance_used=used,
+            bf16_probabilities=p_rounding or None,
             option_moves_output_by=moved,
             kernel_ms=kernel_ms,
             plain_ms=plain_ms,
             library_ms=library_ms,
+            library_max_abs_err=library_err,
             bound_ms=bound_ms,
             bound_by=bound_by,
             bytes_bound_ms=bytes_ms,
@@ -662,6 +763,64 @@ def phase_lm_reduced() -> None:
         check(equal, f"{name}: float32 tokens differ between the card and the CPU")
 
 
+def phase_lm_danube() -> None:
+    """h2o-danube-1.8b at full width and depth on one card: one prefill of
+    2 x 8192 tokens, where the 4096-token window acts, with K1 at dh 80
+    (padded to 128 by the bf16 kernel's TMA loads) once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = get_config("h2o-danube-1.8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    params = M.init_params(cfg, gen.manual_seed(0), device="cuda", compute=True)
+    check(sum(p.numel() for p in params.parameters()) == cfg.param_count(), "parameter count")
+    B, S = 2, 8192
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen.manual_seed(1),
+                            device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    step = make_prefill_step(cfg)
+    flash_attention.launches = 0  # this path's run
+    logits = step(params, batch)
+    sync()
+    launches = flash_attention.launches
+    check(launches == cfg.n_layers,
+          f"danube prefill launched K1 {launches} times, not once per layer ({cfg.n_layers})")
+    check(logits.shape == (B, cfg.padded_vocab), f"danube prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "danube prefill logits are not finite")
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    # least time: as llama3-8b's prefill below, with the window's pairs
+    layer_weights = cfg.param_count() - 2 * cfg.padded_vocab * cfg.d_model - cfg.d_model
+    attn_ops = 4 * cfg.head_dim * B * cfg.n_heads * attention_pairs(S, S, True, cfg.sliding_window)
+    prefill_ops = (2 * B * S * layer_weights + 2 * B * cfg.d_model * cfg.padded_vocab
+                   + cfg.n_layers * attn_ops)
+    emit(
+        "lm_danube_prefill",
+        arch=cfg.name,
+        params=cfg.param_count(),
+        head_dim=cfg.head_dim,
+        window=cfg.sliding_window,
+        batch=B, seq=S,
+        k1_launches_per_call=launches,
+        prefill_s=min(walls),
+        prefill_s_runs=walls,
+        prefill_tokens_per_s=B * S / min(walls),
+        prefill_bound_ms=prefill_ops / BF16_OPS_PER_S * 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=device_profile(lambda: step(params, batch), watch="flash_fwd"),
+    )
+    del params, logits
+    torch.cuda.empty_cache()
+
+
 def phase_lm_serve() -> int:
     """llama3-8b at full width and depth on one card; returns K1's
     launches in one prefill call (the main path's run)."""
@@ -709,7 +868,7 @@ def phase_lm_serve() -> int:
         check(bool(torch.isfinite(out).all()), "prefill logits are not finite")
     prefill_s = min(walls)
     prefill_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prefill_profile = device_profile(lambda: step(params, batch))
+    prefill_profile = device_profile(lambda: step(params, batch), watch="flash_fwd")
     # least time: 2 operations per weight and token in the layers' matmuls,
     # the lm_head for the last position only, and K1's work, at bf16 peak
     layer_weights = cfg.param_count() - 2 * cfg.padded_vocab * cfg.d_model - cfg.d_model
@@ -790,12 +949,14 @@ def main() -> int:
     phase_sweeps()
     phase_service()
     phase_lm_reduced()
+    phase_lm_danube()
     flash_row = {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "design": "wgmma+tma",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:113",
-        "launches": phase_lm_serve(),  # one llama3-8b prefill call
+        "launches": phase_lm_serve(),  # one llama3-8b prefill call (bf16)
         **flash,
     }
     print(json.dumps({"kernels": [scan_row, flash_row]}), flush=True)

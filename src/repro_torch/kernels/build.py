@@ -5,9 +5,10 @@ point.  At first use it is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library in the
 git-ignored ``build/repro_torch_kernels/`` directory of the checkout and
 loaded with ``ctypes``; PyTorch's headers are never included, so a build
-takes seconds.  The library name carries a digest of the source, so an
-edited source never loads a stale library.  Nothing here runs at import
-time.
+takes seconds.  The library name carries a digest of every file in the
+source's ``csrc/`` directory (the source and the headers it includes)
+and of the compiler flags, so an edited source or header never loads a
+stale library.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -45,9 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the shared library built from ``source`` goes."""
-    digest = hashlib.blake2b(source.read_bytes(), digest_size=8).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """Where the shared library built from ``source`` goes: named by a
+    digest of the flags and of every file beside the source."""
+    digest = hashlib.blake2b(digest_size=8)
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in source.parent.iterdir() if p.is_file()):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()}.so"
 
 
 def build(source: Path) -> Path:

@@ -1,4 +1,4 @@
-// Flash attention, forward — hand-written for Hopper (sm_90a).
+// Flash attention, forward, float32 — on CUDA cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py (body `_kernel`, grid
@@ -15,10 +15,11 @@
 // h / (H / Kv), K/V are never repeated), the mask value -1e30 (not -inf,
 // so a tile whose columns are all masked for a row stays finite and is
 // wiped by the next live tile's rescale) and the final sum clamped to
-// 1e-30, all as in the TPU kernel.  Inputs are float32 or bfloat16; every
-// product and sum is float32; the output has q's dtype.  No backward.
+// 1e-30, all as in the TPU kernel.  This file takes float32 inputs (every
+// product and sum in float32, which rules out TF32 and the bf16 tensor-core
+// products); bfloat16 inputs go to flash_attention_bf16.cu.  No backward.
 //
-// Design (simple first; a tensor-core design is later work):
+// Design:
 // one block of 128 threads per (q tile of BQ rows, q-head, batch).  The
 // block stages its Q tile (scaled, float32) in shared memory once, then
 // walks the KV tiles (BK columns) its rows can see: tiles wholly in the
@@ -35,15 +36,13 @@
 // transpose.  Heavier causal q tiles are scheduled first.
 //
 // Bound on an H100 SXM at llama3-8b's prefill shape (B=4, H=32, Kv=8,
-// S=2048, dh=128, bf16, causal): 4 * dh flops for each of the
-// B*H*S*(S+1)/2 visible (row, col) pairs is 137.5 GFLOP, 0.139 ms at 989
-// TFLOP/s of bf16 tensor cores; q, k, v and o are 167.8 MB, 0.050 ms at
-// 3.35 TB/s.  So operations bound it.  This design does its products on
-// float32 CUDA cores, whose 67 TFLOP/s put a floor of 2.05 ms under it,
-// and is limited further by its shared-memory loads (12 per 32 FMAs in
-// the score loop) and its occupancy (one or two 4-warp blocks per SM).
+// S=2048, dh=128, float32, causal): 4 * dh flops for each of the
+// B*H*S*(S+1)/2 visible (row, col) pairs is 137.5 GFLOP, 2.05 ms at the
+// 67 TFLOP/s of float32 CUDA cores; q, k, v and o are 335.5 MB, 0.100 ms
+// at 3.35 TB/s.  So operations bound it.  The design is limited further by
+// its shared-memory loads (12 per 32 FMAs in the score loop) and its
+// occupancy (one or two 4-warp blocks per SM).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -68,25 +67,13 @@ struct Params {
   float logit_cap;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int DH, int BQ, int BK>
 constexpr size_t smem_bytes() {
   // Q and K rows padded by one float against bank conflicts; P padded too
   return sizeof(float) * (BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1));
 }
 
-template <typename T, int DH, int BQ, int BK>
+template <int DH, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   constexpr int RPT = BQ / kRowThreads;  // rows per thread
   constexpr int CPT = BK / kColThreads;  // score columns per thread
@@ -111,15 +98,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const int kvh = h / (p.heads / p.kv_heads);
   const int q_offset = p.skv - p.sq;  // right-aligned queries
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < BQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
     const int row = q0 + r;
-    qs[r * LD + d] = row < p.sq ? to_f32(qg[row * p.q_ss + d]) * p.scale : 0.0f;
+    qs[r * LD + d] = row < p.sq ? qg[row * p.q_ss + d] * p.scale : 0.0f;
   }
 
   // KV tiles this q tile can see
@@ -144,8 +131,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       const int c = i / DH, d = i % DH;
       const int col = k0 + c;
       const bool in = col < p.skv;
-      ks[c * LD + d] = in ? to_f32(kg[col * p.k_ss + d]) : 0.0f;
-      vs[c * DH + d] = in ? to_f32(vg[col * p.v_ss + d]) : 0.0f;
+      ks[c * LD + d] = in ? kg[col * p.k_ss + d] : 0.0f;
+      vs[c * DH + d] = in ? vg[col * p.v_ss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -226,18 +213,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < DPT; ++j)
-        og[row * p.o_ss + tx + kColThreads * j] = from_f32<T>(acc[i][j] / denom);
+        og[row * p.o_ss + tx + kColThreads * j] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   // dh 256 halves both tiles to keep registers (acc: 2 x 32) and shared memory
   constexpr int BQ = DH > 128 ? 32 : 64;
   constexpr int BK = DH > 128 ? 32 : 64;
   constexpr size_t smem = smem_bytes<DH, BQ, BK>();
-  auto kernel = flash_fwd_kernel<T, DH, BQ, BK>;
+  auto kernel = flash_fwd_kernel<DH, BQ, BK>;
   // the shared-memory limit belongs to the instantiation: raised once
   static const cudaError_t attr_err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -247,29 +234,29 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_dh(const Params& p, int batch, int dh, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<T, 16>(p, batch, stream);
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
-    case 256: return launch<T, 256>(p, batch, stream);
+    case 16: return launch<16>(p, batch, stream);
+    case 32: return launch<32>(p, batch, stream);
+    case 64: return launch<64>(p, batch, stream);
+    case 80: return launch<80>(p, batch, stream);
+    case 128: return launch<128>(p, batch, stream);
+    case 256: return launch<256>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  dtype 0 is float32, 1 is
-// bfloat16 (q, k, v and o alike).  Strides are in elements; dh is
-// contiguous.  Launches on `stream`, does not synchronise, allocates
-// nothing.  Returns cudaGetLastError() after the launch (or the error of
-// cudaFuncSetAttribute), or cudaErrorInvalidValue for a head dim without
-// an instantiation, an unknown dtype, an empty shape or heads % kv_heads
-// != 0.
+// Plain C entry point (bound with ctypes), the signature of
+// flash_attention_bf16.cu's; q, k, v and o are float32.  Strides are in
+// elements; dh is contiguous.  Launches on `stream`, does not
+// synchronise, allocates nothing.  Returns cudaGetLastError() after the
+// launch (or the error of cudaFuncSetAttribute), or cudaErrorInvalidValue
+// for a head dim without an instantiation, an empty shape or heads %
+// kv_heads != 0.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o,
     int batch, int heads, int kv_heads, int sq, int skv, int dh,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -283,10 +270,5 @@ extern "C" int flash_attention_fwd(
   const Params p{q, k, v, o,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                  heads, kv_heads, sq, skv, scale, causal, window, logit_cap};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return static_cast<int>(dispatch_dh<float>(p, batch, dh, s));
-    case 1: return static_cast<int>(dispatch_dh<__nv_bfloat16>(p, batch, dh, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(dispatch_dh(p, batch, dh, static_cast<cudaStream_t>(stream)));
 }

@@ -1,18 +1,28 @@
-"""Flash attention forward as a hand-written CUDA kernel for Hopper (port
+"""Flash attention forward as hand-written CUDA kernels for Hopper (port
 of the Pallas kernel ``repro.kernels.flash_attention.kernel``).
 
-:func:`flash_attention` launches ``csrc/flash_attention.cu`` (one block
-per (q tile, q-head, batch), the KV walk a loop inside the block, float32
-running max, sum and accumulator; see the source's header for its design
-and its bound on an H100) on CUDA tensors, and runs the plain version
-(:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`) on CPU
-tensors.  There is no fallback between the two: a CUDA call that cannot
-build or launch the kernel raises.  ``flash_attention.launches`` counts
-the kernel's launches.
+:func:`flash_attention` launches one of two kernels on CUDA tensors,
+chosen by the inputs' dtype as the design, not as a fallback:
 
-The kernel reads its operands through their (batch, head, seq) strides,
-so views of the model's (B, S, H, dh) tensors, transposed to (B, H, S,
-dh), go in without a copy; only dh must be contiguous.
+- bfloat16: ``csrc/flash_attention_bf16.cu``, on the tensor cores (wgmma
+  fed by TMA loads into a two-stage ring, a producer warpgroup and two
+  consumer warpgroups of 64 q rows; probabilities rounded to bf16 for
+  the P V product);
+- float32: ``csrc/flash_attention.cu``, on CUDA cores (every product in
+  float32, which the 2e-5 parity tolerance asks for).
+
+Both run one block per (q tile, q-head, batch) with the KV walk a loop
+inside the block and float32 running max, sum and accumulator; each
+source's header states its design and its bound on an H100.  On CPU
+tensors the wrapper runs the plain version
+(:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`).  A
+CUDA call that cannot build or launch its kernel raises.
+``flash_attention.launches`` counts the kernels' launches.
+
+The kernels read their operands through (batch, head, seq) strides, so
+views of the model's (B, S, H, dh) tensors, transposed to (B, H, S, dh),
+go in without a copy; dh must be contiguous, and for bfloat16 (TMA) the
+base addresses and the strides in bytes must be multiples of 16.
 """
 
 from __future__ import annotations
@@ -25,29 +35,38 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)  # dh values the kernel is instantiated for
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    torch.bfloat16: CSRC / "flash_attention_bf16.cu",
+    torch.float32: CSRC / "flash_attention.cu",
+}
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # dh values both kernels take
+_TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+def _library(dtype: torch.dtype) -> ctypes.CDLL:
+    lib = build.load(SOURCES[dtype])
     fn = lib.flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     )
     return lib
 
 
+def _tma_aligned(t: torch.Tensor) -> bool:
+    byte_strides = (st * t.element_size() for st in t.stride()[:3])
+    return all(x % _TMA_ALIGN == 0 for x in (t.data_ptr(), *byte_strides))
+
+
 def _check(q, k, v, out) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-d (B, heads, S, dh), got {tuple(t.shape)}")
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in SOURCES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q is {q.dtype} on {q.device}")
@@ -90,12 +109,17 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have a contiguous head dim")
-    lib = _library()
+        if q.dtype == torch.bfloat16 and not _tma_aligned(t):
+            raise ValueError(
+                f"{name}: the bf16 kernel's TMA loads need a {_TMA_ALIGN}-byte-aligned base "
+                f"and strides, got {t.data_ptr() % _TMA_ALIGN} bytes off and strides {t.stride()}"
+            )
+    lib = _library(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, Kv, Sq, Skv, dh,
+            B, H, Kv, Sq, Skv, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             dh**-0.5, int(causal), int(window), float(logit_cap), stream,
         )

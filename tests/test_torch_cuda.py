@@ -83,6 +83,17 @@ FLASH_CASES = [
     (1, 4, 2, 77, 301, 16, dict(window=40)),
     (1, 4, 2, 300, 300, 256, dict(window=100, logit_cap=50.0)),
 ]
+# the bf16 tensor-core kernel's own edges: dh 80 (padded to 128 by TMA's
+# zero fill), ragged and right-aligned; Sq < Skv at dh 128; a window edge
+# in the middle of a 128-row q tile; S = 2048, where the two-stage K/V
+# ring wraps eight times
+FLASH_EDGE_CASES = [
+    (1, 4, 2, 128, 128, 80, {}),
+    (2, 4, 2, 200, 333, 80, dict(window=100)),
+    (1, 4, 2, 130, 400, 128, {}),
+    (1, 4, 2, 512, 512, 128, dict(window=192)),
+    (1, 2, 1, 2048, 2048, 128, {}),
+]
 
 
 def _qkv(seed, B, H, Kv, Sq, Skv, dh, dtype, device, qk_std=0.5):
@@ -95,15 +106,17 @@ def _qkv(seed, B, H, Kv, Sq, Skv, dh, dtype, device, qk_std=0.5):
 
 
 # the plain version computes in float32 too and rounds to q's dtype, so
-# bf16 outputs differ by at most one ulp (2^-7 relative)
+# bf16 outputs differ by one ulp (2^-7 relative) plus what the bf16
+# kernel's rounding of its probabilities (2^-9 relative a weight) adds
 FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=4e-3, rtol=1e-2)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, kwargs):
-    """Ragged sizes included: 300 and 77 / 301 rows are no multiple of the
-    64-row (32 at dh 256) tiles."""
+    """Ragged sizes included: 300 and 77 / 301 rows are no multiple of
+    the float32 kernel's 64-row (32 at dh 256) tiles nor of the bf16
+    kernel's 128-row q and 128-key (64 at dh 256) KV tiles."""
     q, k, v = _qkv(0, B, H, Kv, Sq, Skv, dh, dtype, cuda)
     before = flash_kernel.flash_attention.launches
     got = flash_kernel.flash_attention(q, k, v, **kwargs)
@@ -112,6 +125,50 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, 
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, **kwargs)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def _plain_dropping_keys(q, k, v, keys, *, causal=True, window=0):
+    """The plain version with the keys in ``keys`` masked out as well: what
+    a kernel that skipped one KV tile, mis-masked it or read a stale ring
+    stage in its place would be near."""
+    H, Sq, dh = q.shape[1], q.shape[2], q.shape[3]
+    Kv, Skv = k.shape[1], k.shape[2]
+    k, v = (t.float().repeat_interleave(H // Kv, dim=1) for t in (k, v))
+    logits = q.float() @ k.transpose(-1, -2) * dh**-0.5
+    rows = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    cols = torch.arange(Skv, device=q.device)[None, :]
+    ok = ((cols < keys.start) | (cols >= keys.stop)) & (cols <= rows if causal else True)
+    if window:
+        ok = ok & (cols > rows - window)
+    return (torch.where(ok, logits, -1e30).softmax(-1) @ v).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", FLASH_EDGE_CASES)
+def test_flash_kernel_edges_match_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, kwargs):
+    """The bf16 kernel's edges at q and k of std 1 (scores of std 1, as in
+    chip_smoke.py), where the output is concentrated enough to tell one
+    128-key tile: the kernel matches the plain version, and the plain
+    version with the middle tile of the KV walk dropped lies outside the
+    tolerance on the rows past that tile, for which it lies inside the
+    walk, so a kernel that lost that tile would fail."""
+    q, k, v = _qkv(0, B, H, Kv, Sq, Skv, dh, dtype, cuda, qk_std=1.0)
+    before = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, **kwargs)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    tile = Skv // 128 // 2
+    keys = range(128 * tile, min(128 * tile + 128, Skv))
+    dropped = _plain_dropping_keys(q, k, v, keys, **kwargs)
+    first = keys.stop - (Skv - Sq)  # the first q row past the tile (all rows: a one-tile walk)
+    rows = slice(first if 0 <= first < Sq else 0, None)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(
+            dropped[:, :, rows].float(), want[:, :, rows].float(), **FLASH_TOL[dtype]
+        )
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,8 +193,27 @@ def test_flash_kernel_soft_cap_and_window_move_the_output(cuda, dtype, H, Kv, S,
             torch.testing.assert_close(without.float(), want.float(), **FLASH_TOL[dtype])
 
 
-def test_mha_flash_on_the_card_counts_and_matches_cpu(cuda):
-    q, k, v = (t.transpose(1, 2).contiguous() for t in _qkv(1, 2, 8, 2, 96, 96, 64, torch.bfloat16, cuda))
+def test_bf16_flash_rejects_a_view_tma_cannot_read(cuda):
+    """A q view whose rows lie 136 bytes apart (no multiple of 16) raises:
+    the bf16 kernel reads through TMA and neither copies nor falls back."""
+    q, k, v = _qkv(5, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    padded = torch.zeros(1, 4, 64, 68, dtype=torch.bfloat16, device=cuda)
+    padded[..., :64] = q
+    before = flash_kernel.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kernel.flash_attention(padded[..., :64], k, v)
+    assert flash_kernel.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+def test_mha_flash_on_the_card_counts_and_matches_cpu(cuda, dh):
+    """Through the model's (B, S, H, dh) layout: at dh 80 the bf16 kernel's
+    tensor maps have a head stride (160 bytes) below the row stride, and
+    the columns it zero-fills past dh are the next head's bytes."""
+    q, k, v = (
+        t.transpose(1, 2).contiguous()
+        for t in _qkv(1, 2, 8, 2, 96, 96, dh, torch.bfloat16, cuda, qk_std=1.0)
+    )
     before = flash_kernel.flash_attention.launches
     got = mha_flash(q, k, v, causal=True, window=48)
     torch.cuda.synchronize()

@@ -5,7 +5,9 @@ the reference's Pallas kernel in interpret mode and its jnp oracle over
 the reference's kernel sweep (``tests/test_kernels.py``: MHA, GQA 4:1,
 MQA with Skv > Sq, dh 128; float32 at 2e-5, bfloat16 at 2e-2; window 32
 and 64, soft-cap 30, non-causal), from numpy-seeded inputs, and
-``mha_flash`` against the model's ``blocked_attention`` at 2e-4.  The
+``mha_flash`` against the model's ``blocked_attention`` at 2e-4; plus
+dh 80 (h2o-danube-1.8b's) in the sweep, and every registered attention
+config's head dim among the kernels' ``HEAD_DIMS``.  The
 CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``."""
 
@@ -28,6 +30,7 @@ SWEEP = [
     (2, 8, 2, 128, 128, 64, 64),  # GQA 4:1
     (1, 4, 1, 64, 256, 32, 64),  # MQA, Skv > Sq (right-aligned)
     (1, 2, 2, 256, 256, 128, 128),  # wide head
+    (1, 4, 2, 128, 128, 80, 64),  # h2o-danube-1.8b's head dim (2560 / 32)
 ]
 
 
@@ -122,6 +125,21 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert got is out
     assert port_kernel.flash_attention.launches == before
     torch.testing.assert_close(out, attention_ref(q, k, v), rtol=0, atol=0)
+
+
+def test_every_registered_attention_config_has_a_kernel_head_dim():
+    """Every config whose layers have an attention slot runs its prefill
+    through K1 on the card, so its head dim must be one the kernels take
+    (h2o-danube-1.8b's 80 was missing, and its prefill raised)."""
+    from repro_torch.configs.base import get_config, list_configs
+
+    with_attention = [
+        cfg for cfg in map(get_config, list_configs())
+        if any(cfg.mixer_kind(slot) == "attn" for slot in range(cfg.group_size))
+    ]
+    assert {c.name for c in with_attention} >= {"llama3-8b", "gemma2-9b", "h2o-danube-1.8b"}
+    missing = {c.name: c.head_dim for c in with_attention if c.head_dim not in port_kernel.HEAD_DIMS}
+    assert not missing, f"head dims without a kernel instantiation: {missing}"
 
 
 def test_wrapper_rejects_bad_inputs():
