@@ -7,9 +7,13 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
 
 1. device — the card, its power limit and the float32 matmul settings;
 2. build — nvcc of every kernel source (all started together), with each
-   library's tensor-core instructions (HGMMA, HMMA) counted in its SASS;
+   library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2) instructions
+   counted in its SASS, and each kernel's registers, shared memory and
+   spills as ptxas reports them;
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
-   width (B=2, S=2048, d_inner=8192, N=16), held against the plain version;
+   width (B=2, S=2048, d_inner=8192, N=16) and at a long prompt of one
+   sequence (B=1, S=8192), each held against the plain version, with its
+   time beside the bytes bound and the exp pipe's floor;
 4. flash_attention — K1 against its plain version at llama3-8b's prefill
    shape (B=4, H=32, Kv=8, S=2048, dh=128) and at gemma2-9b's (B=1, H=16,
    Kv=8, S=8192, dh=256, window 4096, soft-cap 50, scores driven into the
@@ -66,6 +70,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# exp2 results a clock on each SM (MUFU.EX2; CUDA C Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
+EX2_PER_SM_CLOCK = 16
 
 # committed median_error_pct of the three placement-sweep records
 # (benchmarks/sweep_baseline.json), model outputs the port must reproduce
@@ -168,11 +175,16 @@ def device_profile(fn, watch: str | None = None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query: str, *formats: str) -> str:
+    """One ``nvidia-smi --query-gpu`` answer for the first card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={','.join(('csv', 'noheader', *formats))}"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    smi = nvidia_smi("name,power.limit")
     from repro_torch import resolve_device
 
     resolve_device("cuda")  # raises without CUDA; turns TF32 off
@@ -191,13 +203,30 @@ def phase_device() -> str:
     return smi
 
 
-def tensor_core_ops(lib: Path) -> dict[str, int]:
-    """The tensor-core instructions in a library's SASS: HGMMA (wgmma) and
-    HMMA (mma.sync)."""
+def sass_counts(lib: Path) -> dict[str, int]:
+    """Instructions in a library's SASS: HGMMA (wgmma) and HMMA (mma.sync)
+    on the tensor cores, MUFU.EX2 (exp2) on the special-function unit."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+            for op in ("HGMMA", "HMMA", "MUFU.EX2")}
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel's registers, static shared memory and spills from
+    nvcc's ``-Xptxas -v`` output."""
+    kernels = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernels.append({"kernel": m.group(1)})
+        elif kernels and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[-1].update(registers=int(m.group(1)),
+                               static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return kernels
 
 
 def phase_build() -> None:
@@ -212,17 +241,20 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     for lib in libs:
         check(lib.exists(), f"{lib} was not built")
-    sass = {src.name: tensor_core_ops(lib) for src, lib in zip(sources, libs)}
+    sass = {src.name: sass_counts(lib) for src, lib in zip(sources, libs)}
+    ptxas = {src.name: ptxas_report(build.BUILD_LOGS.get(src.name, "")) for src in sources}
     emit(
         "build",
         seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in libs],
-        tensor_core_instructions=sass,
-        ptxas=[line for s in sources for line in build.BUILD_LOGS.get(s.name, "").splitlines()
-               if "ptxas" in line or "spill" in line],
+        sass_instructions=sass,
+        ptxas=ptxas,
+        selective_scan_tiles={n: scan_kernel.tiles(n) for n in scan_kernel.STATE_WIDTHS},
     )
     bf16 = flash_kernel.SOURCES[torch.bfloat16].name
     check(sass[bf16]["HGMMA"] > 0, f"{bf16} has no wgmma (HGMMA) in its SASS")
+    scan = scan_kernel.SOURCE.name
+    check(sass[scan]["MUFU.EX2"] > 0, f"{scan} has no MUFU.EX2 in its SASS")
 
 
 def scan_inputs(B, S, di, n, seed, device):
@@ -240,78 +272,108 @@ def scan_inputs(B, S, di, n, seed, device):
     return dt, a, b, c, x
 
 
+SCAN_SHAPES = (
+    # label, (B, S, d_inner, N): falcon-mamba-7b's width (configs/falcon_mamba_7b.py)
+    ("falcon-mamba-7b B=2", (2, 2048, 8192, 16)),
+    ("falcon-mamba-7b long prompt B=1", (1, 8192, 8192, 16)),
+)
+
+
 def phase_selective_scan() -> dict:
-    from repro_torch.kernels.mamba_scan.kernel import selective_scan
+    """K2 at each of ``SCAN_SHAPES`` through ``ssm_scan``, held against the
+    plain version at atol = rtol = 1e-4, with bf16 inputs at 2e-2 at the
+    first shape.  Its time stands beside the bytes bound (dt and x read, y
+    written), the float32 operations bound and the exp pipe's floor (one
+    exponential per (b, t, d, n) at 16 a clock on each SM at the card's
+    highest SM clock).  Returns the first shape's numbers for the kernels
+    line."""
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan, tiles
     from repro_torch.kernels.mamba_scan.ops import ssm_scan
     from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
-    B, S, di, n = 2, 2048, 8192, 16
-    dt, a, b, c, x = scan_inputs(B, S, di, n, 0, "cuda")
+    sm_clock_hz = float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = None  # the first shape's, for the kernels line
+    for label, (B, S, di, n) in SCAN_SHAPES:
+        dt, a, b, c, x = scan_inputs(B, S, di, n, 0, "cuda")
 
-    # the path run: counts from zero, read right after
-    selective_scan.launches = 0
-    y = ssm_scan(dt, a, b, c, x)
-    sync()
-    launches = selective_scan.launches
-    check(launches > 0, "ssm_scan did not launch the CUDA kernel")
+        # the path run: counts from zero, read right after
+        selective_scan.launches = 0
+        y = ssm_scan(dt, a, b, c, x)
+        sync()
+        launches = selective_scan.launches
+        check(launches == 1, f"{label}: ssm_scan launched the CUDA kernel {launches} times, not once")
 
-    want, _ = selective_scan_ref(dt, a, b, c, x)
-    sync()
-    diff = (y - want).abs()
-    max_abs = float(diff.max())
-    max_rel = max_abs / float(want.abs().max())
-    check(bool(torch.isfinite(y).all()), "scan output is not finite")
-    check(bool((diff <= 1e-4 + 1e-4 * want.abs()).all()),
-          f"scan disagrees with the plain version: max abs {max_abs}")
+        want, _ = selective_scan_ref(dt, a, b, c, x)
+        sync()
+        max_abs = float((y - want).abs().max())
+        max_rel = max_abs / float(want.abs().max())
+        used = tolerance_used(y, want, 1e-4, 1e-4)
+        check(bool(torch.isfinite(y).all()), f"{label}: scan output is not finite")
+        check(used <= 1.0, f"{label}: scan disagrees with the plain version: max abs {max_abs}")
+        del y, want
 
-    # bf16 inputs through the public wrapper, against the plain scan of the
-    # same bf16-rounded inputs
-    bf = [t.to(torch.bfloat16) for t in (dt, b, c, x)]
-    y16 = ssm_scan(bf[0], a, bf[1], bf[2], bf[3])
-    want16, _ = selective_scan_ref(*(t.float() for t in bf[:1]), a,
-                                   *(t.float() for t in bf[1:]))
-    sync()
-    diff16 = (y16 - want16).abs()
-    check(bool((diff16 <= 2e-2 + 2e-2 * want16.abs()).all()),
-          f"bf16 scan disagrees: max abs {float(diff16.max())}")
+        bf16_err = None
+        if row is None:
+            # bf16 inputs through the public wrapper, against the plain scan
+            # of the same bf16-rounded inputs
+            bf = [t.to(torch.bfloat16) for t in (dt, b, c, x)]
+            y16 = ssm_scan(bf[0], a, bf[1], bf[2], bf[3])
+            want16, _ = selective_scan_ref(*(t.float() for t in bf[:1]), a,
+                                           *(t.float() for t in bf[1:]))
+            sync()
+            bf16_err = float((y16 - want16).abs().max())
+            check(within(y16, want16, 2e-2, 2e-2), f"{label}: bf16 scan disagrees: max abs {bf16_err}")
+            del bf, y16, want16
 
-    for _ in range(3):
-        selective_scan(dt, a, b, c, x)
-    kernel_ms = cuda_ms(lambda: selective_scan(dt, a, b, c, x), 20)
-    selective_scan_ref(dt, a, b, c, x)
-    plain_ms = cuda_ms(lambda: selective_scan_ref(dt, a, b, c, x), 2)
+        for _ in range(3):
+            selective_scan(dt, a, b, c, x)
+        kernel_ms = cuda_ms(lambda: selective_scan(dt, a, b, c, x), 20)
+        plain_ms = cuda_ms(lambda: selective_scan_ref(dt, a, b, c, x), 2)
 
-    elems = B * S * di
-    bytes_moved = 4 * (3 * elems + 2 * B * S * n + di * n)  # dt, x, y, b, c, a
-    ops = 7 * elems * n + elems  # per (b,t,d,n): dt*a, exp, *h, *b, +, *c, +
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    row = {
-        "name": "selective_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu",
-        "replaces": "src/repro/kernels/mamba_scan/kernel.py:61",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes the scan
-    }
-    emit(
-        "selective_scan",
-        shape=[B, S, di, n],
-        max_abs_err=max_abs,
-        max_rel_err=max_rel,
-        bf16_max_abs_err=float(diff16.max()),
-        launches=launches,
-        kernel_ms=kernel_ms,
-        plain_ms=plain_ms,
-        bound_ms=row["bound_ms"],
-        bytes_bound_ms=bytes_ms,
-        ops_bound_ms=ops_ms,
-    )
+        elems = B * S * di
+        bytes_moved = 4 * (3 * elems + 2 * B * S * n + di * n)  # dt, x, y, b, c, a
+        ops = 7 * elems * n + elems  # per (b,t,d,n): dt*a, exp, *h, *b, +, *c, +
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        exp_ms = elems * n / (sms * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        row = row or {
+            "name": "selective_scan",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:61",
+            "launches": launches,
+            "max_abs_err": max_abs,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,  # no single PyTorch call computes the scan
+        }
+        emit(
+            "selective_scan",
+            case=label,
+            shape=[B, S, di, n],
+            tiles=tiles(n),
+            max_abs_err=max_abs,
+            max_rel_err=max_rel,
+            tolerance_used=used,
+            bf16_max_abs_err=bf16_err,
+            launches=launches,
+            kernel_ms=kernel_ms,
+            plain_ms=plain_ms,
+            bound_ms=bound_ms,
+            bytes_bound_ms=bytes_ms,
+            ops_bound_ms=ops_ms,
+            exp_floor_ms=exp_ms,
+            exp_floor_inputs=dict(exps=elems * n, sms=sms, ex2_per_sm_clock=EX2_PER_SM_CLOCK,
+                                  sm_clock_mhz=sm_clock_hz / 1e6),
+            kernel_gb_per_s=bytes_moved / kernel_ms / 1e6,
+            share_of_bound=bound_ms / kernel_ms,
+        )
+        del dt, a, b, c, x
+        torch.cuda.empty_cache()
     return row
 
 

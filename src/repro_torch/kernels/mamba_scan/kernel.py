@@ -1,14 +1,18 @@
 """Selective scan (mamba-1) forward as a hand-written CUDA kernel for
 Hopper (port of the Pallas kernel ``repro.kernels.mamba_scan.kernel``).
 
-:func:`selective_scan` launches ``csrc/selective_scan.cu`` (one thread
-per (batch, channel), the N-wide state in registers, the time loop
-inside the thread; see the source's header for its design and its bound
-on an H100) on CUDA tensors, and runs the plain version
-(:func:`~repro_torch.kernels.mamba_scan.ref.selective_scan_ref`) on CPU
-tensors.  There is no fallback between the two: a CUDA call that cannot
-build or launch the kernel raises.  ``selective_scan.launches`` counts
-the kernel's launches.
+:func:`selective_scan` launches ``csrc/selective_scan.cu`` on CUDA
+tensors: one block per (batch row, tile of channels) walks the sequence
+in chunks of steps (:func:`tiles` reads the sizes), each chunk's dt, x, B and C
+copied into shared memory by ``cp.async`` a few chunks ahead of the
+scan; four lanes share a channel's 16 states, and y leaves in coalesced
+tiles (see the source's header for the tiles, their reasons and the
+kernel's bound on an H100).  The time axis is not split, so a call is
+one launch.  On CPU tensors it runs the plain version
+(:func:`~repro_torch.kernels.mamba_scan.ref.selective_scan_ref`).
+There is no fallback between the two: a CUDA call that cannot build or
+launch the kernel raises.  ``selective_scan.launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -30,7 +34,18 @@ def _library() -> ctypes.CDLL:
     fn = lib.selective_scan_fwd_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.selective_scan_tiles.restype = ctypes.c_int
+    lib.selective_scan_tiles.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def tiles(d_state: int) -> dict[str, int]:
+    """The built kernel's tiling at ``d_state``: time steps a chunk,
+    channels a block, ring stages and dynamic shared memory a block."""
+    out = (ctypes.c_int * 4)()
+    if _library().selective_scan_tiles(d_state, out) != 0:
+        raise ValueError(f"d_state {d_state} has no kernel instantiation {STATE_WIDTHS}")
+    return dict(zip(("time_chunk", "channels", "stages", "smem_bytes"), out))
 
 
 def _check(dt, a, b, c, x) -> tuple[int, int, int, int]:

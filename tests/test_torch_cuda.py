@@ -20,7 +20,16 @@ from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
 pytestmark = pytest.mark.gpu
 
-SHAPES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 16), (2, 64, 128, 4), (1, 300, 70, 16)]
+SHAPES = [
+    (1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 16), (2, 64, 128, 4), (1, 300, 70, 16),
+    # ragged for K2's tiles (16-step chunks in a ring of 4, channel tiles of
+    # 32 / 64 / 128 at N = 16 / 8 / 4, 16-byte copies only where d_inner % 4
+    # == 0): S past the ring's first wrap and no multiple of a chunk, part
+    # of a channel tile, d_inner % 4 != 0, B = 3
+    (3, 333, 100, 16), (3, 257, 90, 8), (3, 161, 130, 4), (2, 1000, 200, 16),
+    # fewer chunks than ring stages; less than one chunk; one step
+    (2, 40, 36, 4), (3, 7, 20, 16), (1, 1, 4, 8),
+]
 
 
 @pytest.fixture
@@ -30,10 +39,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, B, S, di, n, device):
+def _inputs(seed, B, S, di, n, device, dt_shift=2.0):
     rng = np.random.default_rng(seed)
     arrays = (
-        np.log1p(np.exp(rng.standard_normal((B, S, di)) - 2.0)),
+        np.log1p(np.exp(rng.standard_normal((B, S, di)) - dt_shift)),
         -np.exp(rng.standard_normal((di, n)) * 0.3),
         rng.standard_normal((B, S, n)) * 0.5,
         rng.standard_normal((B, S, n)) * 0.5,
@@ -44,14 +53,53 @@ def _inputs(seed, B, S, di, n, device):
 
 @pytest.mark.parametrize("B,S,di,n", SHAPES)
 def test_scan_kernel_matches_plain_version(cuda, B, S, di, n):
-    """Ragged shapes included: 300 steps is not a multiple of the 64-step
-    staging chunk, 70 channels not a multiple of the 64-thread block."""
+    """Ragged shapes included (see ``SHAPES``); one launch a call."""
     dt, a, b, c, x = _inputs(0, B, S, di, n, cuda)
     before = scan_kernel.selective_scan.launches
     got = scan_kernel.selective_scan(dt, a, b, c, x)
     torch.cuda.synchronize()
     assert scan_kernel.selective_scan.launches == before + 1
     want, _ = selective_scan_ref(dt, a, b, c, x)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_scan_kernel_carries_the_state_across_chunks(cuda):
+    """dt drawn small (softplus(z - 6), about 0.004) so the state decays
+    slowly and carries across the kernel's time chunks; S spans five of
+    them and a ragged sixth.  The kernel matches the plain version, and the
+    plain version with the state reset to zero at any of the five chunk
+    boundaries lies outside the tolerance on the last chunk's steps, so a
+    kernel that dropped the carry at a boundary (or read a stale ring
+    stage) would fail."""
+    T = scan_kernel.tiles(16)["time_chunk"]
+    B, S, di, n = 2, 5 * T + 7, 96, 16
+    dt, a, b, c, x = _inputs(3, B, S, di, n, cuda, dt_shift=6.0)
+    got = scan_kernel.selective_scan(dt, a, b, c, x)
+    torch.cuda.synchronize()
+    want, _ = selective_scan_ref(dt, a, b, c, x)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for cut in range(T, S, T):
+        after, _ = selective_scan_ref(dt[:, cut:], a, b[:, cut:], c[:, cut:], x[:, cut:])
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(after[:, 5 * T - cut:], want[:, 5 * T:], atol=1e-4, rtol=1e-4)
+
+
+def test_scan_kernel_reads_unaligned_views(cuda):
+    """Contiguous inputs that start 4 bytes into their storage: 16-byte
+    copies need 16-byte aligned addresses, so the kernel takes its 4-byte
+    copies, and matches the plain version."""
+    B, S, di, n = 2, 100, 64, 16
+    arrays = _inputs(4, B, S, di, n, cuda)
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        return view.copy_(t)
+
+    dt, a, b, c, x = (shifted(t) for t in arrays)
+    assert dt.is_contiguous() and dt.data_ptr() % 16 != 0
+    got = scan_kernel.selective_scan(dt, a, b, c, x)
+    torch.cuda.synchronize()
+    want, _ = selective_scan_ref(*arrays)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
@@ -67,6 +115,8 @@ def test_scan_kernel_rejects_state_width_without_instantiation(cuda):
     dt, a, b, c, x = _inputs(2, 1, 16, 8, 5, cuda)
     with pytest.raises(ValueError):
         scan_kernel.selective_scan(dt, a, b, c, x)
+    with pytest.raises(ValueError):
+        scan_kernel.tiles(5)
 
 
 FLASH_CASES = [
