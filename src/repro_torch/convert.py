@@ -92,10 +92,14 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) value for
     value and dtype for dtype.  The reference stacks each slot's leaves
     over groups; layer ``g * group_size + s`` gets group ``g`` of
-    ``groups["slot<s>"]``."""
+    ``groups["slot<s>"]``.  MoE experts must be stored whole, one row an
+    expert (the reference's ``factor`` 1, as with no mesh); a tree whose
+    experts are split over ``d_ff`` raises ``ValueError``."""
     from repro_torch.models.attention import Attention
     from repro_torch.models.layers import SwiGLU
-    from repro_torch.models.model import LM, Block, check_supported
+    from repro_torch.models.mamba import Mamba
+    from repro_torch.models.model import LM, Block, check_supported, slot_kinds
+    from repro_torch.models.moe import MoE
 
     check_supported(cfg)
     dev = resolve_device(device)
@@ -103,17 +107,32 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     def t(a):
         return torch.as_tensor(np.array(a), device=dev)
 
+    def leaves(group: Mapping, names, g):
+        return (t(group[n][g]) for n in names)
+
     layers = []
     for g in range(cfg.n_groups):
         for s in range(cfg.group_size):
             slot = tree["groups"][f"slot{s}"]
-            mixer, ffn = slot["mixer"], slot["ffn"]
-            layers.append(Block(
-                t(slot["norm1"][g]),
-                Attention(*(t(mixer[n][g]) for n in ("wq", "wk", "wv", "wo"))),
-                t(slot["norm2"][g]),
-                SwiGLU(*(t(ffn[n][g]) for n in ("w_gate", "w_up", "w_down"))),
-            ))
+            mixer_kind, _, ffn_kind = slot_kinds(cfg, s)
+            if mixer_kind == "attn":
+                mixer = Attention(*leaves(slot["mixer"], ("wq", "wk", "wv", "wo"), g))
+            else:
+                mixer = Mamba(*leaves(slot["mixer"], Mamba.LEAVES, g))
+            if ffn_kind == "none":
+                layers.append(Block(t(slot["norm1"][g]), mixer))
+                continue
+            if ffn_kind == "moe":
+                rows = slot["ffn"]["w_gate"].shape[1]
+                if rows != cfg.n_experts:
+                    raise ValueError(
+                        f"{cfg.name}: the tree holds {rows} expert rows for {cfg.n_experts} "
+                        "experts (experts split over d_ff); the port takes whole experts"
+                    )
+                ffn = MoE(*leaves(slot["ffn"], MoE.LEAVES, g))
+            else:
+                ffn = SwiGLU(*leaves(slot["ffn"], ("w_gate", "w_up", "w_down"), g))
+            layers.append(Block(t(slot["norm1"][g]), mixer, t(slot["norm2"][g]), ffn))
     lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
     return LM(t(tree["embed"]["table"]), layers, t(tree["final_norm"]), lm_head)
 

@@ -4,9 +4,11 @@ teacher-forced prefill through the decode path, then greedy decode.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --reduced --batch 4 --prompt-len 16 --gen 16 [--device cpu]
 
-The default device is the card (``cuda``); without one it raises.  The
-weights are random, drawn from a seeded ``torch.Generator`` on the
-device and cast to the compute dtype leaf by leaf.
+Any decoder-only arch serves (attention, mamba and MoE layers); at full
+size falcon-mamba-7b and qwen3-moe-30b-a3b fit one H100.  The default
+device is the card (``cuda``); without one it raises.  The weights are
+random, drawn from a seeded ``torch.Generator`` on the device and cast
+to the compute dtype leaf by leaf.
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ from repro_torch.models import model as M
 
 
 def generate(cfg, params, prompts, max_len, gen_tokens, *, device=DEFAULT_DEVICE):
-    """Teacher-forced prefill through the decode path (fills the cache),
-    then greedy generation.  Returns ``(B, P + gen_tokens)`` int32 tokens:
-    the prompts followed by the generated ones.  The cache is bfloat16
-    whatever the compute dtype, as in the reference."""
+    """Teacher-forced prefill through the decode path (fills the cache:
+    K/V for an attention layer, the conv window and state for a mamba
+    layer), then greedy generation.  Returns ``(B, P + gen_tokens)`` int32
+    tokens: the prompts followed by the generated ones.  The cache is
+    bfloat16 whatever the compute dtype (a mamba state float32), as in
+    the reference."""
     dev = resolve_device(device)
     prompts = prompts.to(dev)
     B, P = prompts.shape

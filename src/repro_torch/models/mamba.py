@@ -1,0 +1,161 @@
+"""Mamba-1 mixer (port of ``repro.models.mamba``): the selective state
+space block, its O(1) decode step and its conv / SSM cache.
+
+* Prefill (:func:`mamba_mixer`): in-projection, causal depthwise conv,
+  softplus dt, then the scan through ``ssm_scan``, which on a card
+  launches K2 (the hand-written selective-scan kernel) and on the CPU
+  runs its plain version; then the skip ``D``, the ``silu(z)`` gate and
+  the out-projection.  The reference's prefill scans in chunks of an
+  associative scan with bf16 level tensors (its TPU route to a scan); the
+  port's scan is K2, float32 throughout, so the two differ by the
+  reference's bf16 rounding (about 6e-4 of the output's scale at the
+  reduced falcon-mamba-7b).
+* Decode (:func:`mamba_decode`): one step of the recurrence against the
+  cache, elementwise tensor code (the reference's step is float32 too).
+  The cache is updated in place (the reference returns a new one).
+* The reference's sharding annotations have no counterpart on one card
+  and are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mamba_scan.ops import ssm_scan
+from repro_torch.models.layers import weight
+
+
+class Mamba(nn.Module):
+    """One mamba layer's leaves, named as the reference's tree, ``x @ w``
+    orientation: ``in_proj`` (D, 2 di), ``conv_w`` (K, di), ``conv_b``
+    (di,), ``x_proj`` (di, dt_rank + 2N), ``dt_proj`` (dt_rank, di),
+    ``dt_bias`` (di,), ``A_log`` (di, N), ``D`` (di,), ``out_proj``
+    (di, D)."""
+
+    LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
+              "out_proj")
+
+    def __init__(self, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D, out_proj):
+        super().__init__()
+        for name, t in zip(self.LEAVES, (in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
+                                         A_log, D, out_proj)):
+            setattr(self, name, weight(t))
+
+
+def init_mamba_params(
+    cfg: ModelConfig,
+    generator: torch.Generator,
+    dtype: torch.dtype,
+    device,
+    *,
+    master: torch.dtype = torch.float32,
+) -> Mamba:
+    """Random leaves with the reference's scales, drawn in float32 from
+    ``generator`` (on ``device``): the matmul weights and ``conv_b`` in
+    ``dtype``, ``dt_bias`` in ``master`` (the parameter dtype: the compute
+    cast keeps it), ``A_log = log(1..N)`` and ``D = 1`` in float32."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, kconv = cfg.dt_rank_actual, cfg.ssm_conv
+
+    def normal(shape, scale):
+        t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return t.mul_(scale).to(dtype)
+
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device).expand(di, n)
+    return Mamba(
+        normal((d, 2 * di), d**-0.5),
+        normal((kconv, di), kconv**-0.5),
+        torch.zeros(di, dtype=dtype, device=device),
+        normal((di, dtr + 2 * n), di**-0.5),
+        normal((dtr, di), dtr**-0.5),
+        torch.full((di,), -4.6, dtype=master, device=device),  # softplus^-1(0.01)
+        torch.log(a),
+        torch.ones(di, dtype=torch.float32, device=device),
+        normal((di, d), di**-0.5),
+    )
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor  # (B, K-1, d_inner): the trailing conv window, in the cache dtype
+    ssm: torch.Tensor  # (B, d_inner, N): the recurrent state, float32
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype, device) -> MambaCache:
+    """A zeroed cache: the conv window in ``dtype``, the state in float32."""
+    return MambaCache(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        ssm=torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=device),
+    )
+
+
+def _causal_conv(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, history: torch.Tensor | None
+) -> torch.Tensor:
+    """Depthwise causal conv over the sequence: ``x`` (B, S, di), kernel
+    ``w`` (K, di), preceded by ``history`` (B, K-1, di) or zeros; one
+    depthwise ``conv1d`` in x's dtype."""
+    k = w.shape[0]
+    if history is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    else:
+        pad = history.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1).transpose(1, 2)  # (B, di, K-1+S)
+    out = F.conv1d(xp, w.T[:, None, :], b, groups=w.shape[1])
+    return out.transpose(1, 2)
+
+
+def _ssm_inputs(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
+    """The pre-scan projections, in the reference's rounding order:
+    ``dt_bias`` cast to the compute dtype before the add, softplus in the
+    compute dtype, float32 after.  Returns ``(dt, a, b, c)``: dt (B, S,
+    di), a = -exp(A_log) (di, N), b and c (B, S, N), all float32."""
+    dtr, n = cfg.dt_rank_actual, cfg.ssm_state
+    x_dbl = x_conv @ p.x_proj  # (B, S, dtr + 2N)
+    dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
+    dt = F.softplus(dt @ p.dt_proj + p.dt_bias.to(x_conv.dtype)).float()
+    a = -torch.exp(p.A_log)
+    return dt, a, b.float(), c.float()
+
+
+def _gate(y: torch.Tensor, xf: torch.Tensor, D: torch.Tensor, z: torch.Tensor, dtype):
+    """``(y + x D) * silu(z)`` in float32, rounded to ``dtype``."""
+    return ((y + xf * D) * F.silu(z.float())).to(dtype)
+
+
+def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
+    """The full-sequence (prefill) mixer: ``x`` (B, S, D) -> (B, S, D) in
+    x's dtype.  Its scan is K2 on a card (one launch) and the plain
+    version on the CPU; there is no fallback between them."""
+    xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, S, di) each
+    x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, None))
+    dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
+    xf = x_conv.float()
+    y = ssm_scan(dt, a, b, c, xf)  # (B, S, di) float32
+    return _gate(y, xf, p.D, z, x.dtype) @ p.out_proj
+
+
+def mamba_decode(
+    cfg: ModelConfig, p: Mamba, x: torch.Tensor, cache: MambaCache
+) -> tuple[torch.Tensor, MambaCache]:
+    """One token per sequence, ``x`` (B, 1, D): one step of the
+    recurrence from the cache's state.  Writes the new conv window and
+    state into ``cache`` in place and returns ``(out (B, 1, D), cache)``."""
+    xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, 1, di) each
+    x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, cache.conv))
+    new_conv = torch.cat([cache.conv[:, 1:], xin.to(cache.conv.dtype)], dim=1)
+
+    dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
+    xf = x_conv.float()
+    da = torch.exp(dt[:, 0, :, None] * a[None])  # (B, di, N)
+    dbx = (dt[:, 0] * xf[:, 0])[..., None] * b[:, 0, None, :]
+    h = cache.ssm * da + dbx
+    y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None]
+    out = _gate(y, xf, p.D, z, x.dtype) @ p.out_proj
+    cache.conv.copy_(new_conv)
+    cache.ssm.copy_(h)
+    return out, cache

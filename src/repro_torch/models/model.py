@@ -4,18 +4,22 @@ passes, prefill and decode steps.
 The reference stacks its layers into groups of ``cfg.group_size`` (the
 period of the arch's layer pattern) and scans them; the port keeps a
 ``ModuleList`` of layers instead, where layer ``g * group_size + s`` is
-group ``g``, slot ``s``, and takes its kinds from the slot.  This slice
-covers slots with an attention mixer and a dense FFN (llama3-8b,
-gemma2-9b, h2o-danube-1.8b, deepseek-7b); a mamba mixer, an MoE FFN, an
-encoder-decoder or a ViT-patch frontend raises ``NotImplementedError``
-naming its ROADMAP item.
+group ``g``, slot ``s``, and takes its kinds from the slot: an attention
+or a mamba mixer, and a dense, an MoE or no FFN (every decoder-only
+arch: llama3-8b, gemma2-9b, h2o-danube-1.8b, deepseek-7b,
+falcon-mamba-7b, jamba-1.5-large-398b, mixtral-8x22b,
+qwen3-moe-30b-a3b).  An encoder-decoder or a ViT-patch frontend raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Parameter names follow the reference tree (``embed.table``,
-``layers.<i>.mixer.wq``, ``layers.<i>.ffn.w_gate``, ``layers.<i>.norm1``,
-``final_norm``, ``lm_head``).  Compute follows its mixed-precision
-policy: master parameters in ``param_dtype``, matmul weights cast to
-``compute_dtype`` at the step boundary (:func:`cast_for_compute`), norm
-scales kept in float32.
+``layers.<i>.mixer.wq`` or ``layers.<i>.mixer.A_log``,
+``layers.<i>.ffn.w_gate`` or ``layers.<i>.ffn.router``,
+``layers.<i>.norm1``, ``final_norm``, ``lm_head``); a layer without an
+FFN has neither ``norm2`` nor ``ffn``.  Compute follows its
+mixed-precision policy: master parameters in ``param_dtype``, matmul
+weights cast to ``compute_dtype`` at the step boundary
+(:func:`cast_for_compute`), norm scales, SSM dynamics and router kept in
+float32.
 """
 
 from __future__ import annotations
@@ -28,11 +32,13 @@ from torch import nn
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import Embed, SwiGLU, embed, rms_norm, swiglu, unembed, weight
 
 # Leaves kept in float32 regardless of the compute policy (besides the
-# norm scales): SSM dynamics and router logits, none of which this slice
-# builds yet.
+# norm scales): SSM dynamics (A_log and D are exp'd) and router logits
+# (top-k stability), as in the reference.
 _KEEP_F32_KEYS = ("A_log", "D", "router", "dt_bias")
 
 
@@ -57,14 +63,19 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the ViT-patch frontend waits for ROADMAP §1 P14 (vit)"
         )
-    for s in range(cfg.group_size):
-        mixer, _, ffn = slot_kinds(cfg, s)
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the mamba mixer waits for ROADMAP §1 P14 (mamba, K2 on the path)"
-            )
-        if ffn != "dense":
-            raise NotImplementedError(f"{cfg.name}: the {ffn} FFN waits for ROADMAP §1 P14 (MoE)")
+
+
+def tree_param_count(cfg: ModelConfig) -> int:
+    """The parameters :func:`init_params` makes, as many as the
+    reference's tree holds.  ``cfg.param_count()`` (the reference's own
+    count, kept as it is) differs from the tree in two places: it omits a
+    mamba layer's ``conv_b`` (d_inner) and counts a ``norm2`` (d_model)
+    in a layer without an FFN."""
+    total = cfg.param_count()
+    for i in range(cfg.n_layers):
+        mixer, _, ffn = slot_kinds(cfg, i % cfg.group_size)
+        total += (cfg.d_inner if mixer == "mamba" else 0) - (cfg.d_model if ffn == "none" else 0)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -73,14 +84,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """One layer: ``norm1``, the attention ``mixer``, ``norm2`` and the
-    dense ``ffn``."""
+    """One layer: ``norm1``, the ``mixer`` (an
+    :class:`~repro_torch.models.attention.Attention` or a
+    :class:`~repro_torch.models.mamba.Mamba`), and, unless the slot has
+    no FFN, ``norm2`` and the ``ffn`` (a :class:`SwiGLU` or an
+    :class:`~repro_torch.models.moe.MoE`)."""
 
-    def __init__(self, norm1, mixer: attn.Attention, norm2, ffn: SwiGLU):
+    def __init__(self, norm1, mixer: nn.Module, norm2=None, ffn: nn.Module | None = None):
         super().__init__()
         self.norm1 = weight(norm1)
         self.mixer = mixer
-        self.norm2 = weight(norm2)
+        self.norm2 = None if norm2 is None else weight(norm2)
         self.ffn = ffn
 
 
@@ -103,9 +117,9 @@ def _keeps_f32(name: str) -> bool:
 
 def cast_for_compute(cfg: ModelConfig, params: LM) -> LM:
     """The parameters as the step computes with them: every floating leaf
-    but the norm scales in ``compute_dtype``.  Returns ``params`` itself
-    when nothing needs a cast; otherwise a new :class:`LM` that shares
-    the leaves already in the right dtype."""
+    but the norm scales and ``_KEEP_F32_KEYS`` in ``compute_dtype``.
+    Returns ``params`` itself when nothing needs a cast; otherwise a new
+    :class:`LM` that shares the leaves already in the right dtype."""
     compute = torch_dtype(cfg.compute_dtype)
     memo, changed = {}, False
     for name, p in params.named_parameters():
@@ -143,9 +157,20 @@ def init_params(
         return torch.zeros(d, dtype=torch.float32, device=dev)
 
     layers = []
-    for _ in range(cfg.n_layers):
-        mixer = attn.init_attn_params(cfg, generator, weights, dev)
-        ffn = SwiGLU(normal((d, f), d**-0.5), normal((d, f), d**-0.5), normal((f, d), f**-0.5))
+    for i in range(cfg.n_layers):
+        mixer_kind, _, ffn_kind = slot_kinds(cfg, i % cfg.group_size)
+        if mixer_kind == "attn":
+            mixer = attn.init_attn_params(cfg, generator, weights, dev)
+        else:
+            mixer = mb.init_mamba_params(cfg, generator, weights, dev, master=master)
+        if ffn_kind == "none":
+            layers.append(Block(zeros(), mixer))
+            continue
+        if ffn_kind == "moe":
+            ffn = moe_mod.init_moe_params(cfg, generator, weights, dev)
+        else:
+            ffn = SwiGLU(normal((d, f), d**-0.5), normal((d, f), d**-0.5),
+                         normal((f, d), f**-0.5))
         layers.append(Block(zeros(), mixer, zeros(), ffn))
     table = normal((vocab, d), 0.02)
     lm_head = None if cfg.tie_embeddings else normal((d, vocab), 0.02)
@@ -172,16 +197,32 @@ def _unembed(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return unembed(x, params.lm_head, transpose=False, cap=cfg.final_logit_softcap)
 
 
+def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str, *, decode: bool = False):
+    """The residual FFN half of a layer: ``(x, aux)``, where ``aux`` is an
+    MoE's balance loss and ``None`` for any other FFN."""
+    if kind == "none":
+        return x, None
+    h = rms_norm(x, layer.norm2, cfg.norm_eps)
+    if kind == "moe":
+        h, aux = moe_mod.moe_apply(cfg, layer.ffn, h, decode=decode)
+        return x + h, aux
+    return x + swiglu(h, layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down), None
+
+
 def _hidden(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i, layer in enumerate(params.layers):
-        _, akind, _ = slot_kinds(cfg, i % cfg.group_size)
-        h = rms_norm(x, layer.norm1, cfg.norm_eps)
-        x = x + attn.mha(cfg, layer.mixer, h, positions, kind=akind)
-        h = rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + swiglu(h, layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(params.layers):
+        mixer, akind, ffn = slot_kinds(cfg, i % cfg.group_size)
+        h = rms_norm(x, layer.norm1, cfg.norm_eps)
+        if mixer == "attn":
+            x = x + attn.mha(cfg, layer.mixer, h, positions, kind=akind)
+        else:
+            x = x + mb.mamba_mixer(cfg, layer.mixer, h)
+        x, a = _ffn(cfg, layer, x, ffn)
+        if a is not None:
+            aux = aux + a
     return rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -220,29 +261,35 @@ def prefill(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
 
 def init_cache(
     cfg: ModelConfig, batch: int, seq_len: int, dtype: torch.dtype, *, device=DEFAULT_DEVICE
-) -> list[attn.KVCache]:
-    """Decode cache: one zeroed :class:`~repro_torch.models.attention.KVCache`
-    per layer (an SWA layer's is a ring of ``sliding_window`` slots)."""
+) -> list[attn.KVCache | mb.MambaCache]:
+    """Decode cache, one zeroed entry per layer: a
+    :class:`~repro_torch.models.attention.KVCache` for an attention layer
+    (an SWA layer's is a ring of ``sliding_window`` slots) or a
+    :class:`~repro_torch.models.mamba.MambaCache` for a mamba layer (conv
+    window in ``dtype``, state in float32)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [
-        attn.init_kv_cache(
-            cfg, batch, seq_len, kind=slot_kinds(cfg, i % cfg.group_size)[1],
-            dtype=dtype, device=dev,
-        )
-        for i in range(cfg.n_layers)
-    ]
+    cache = []
+    for i in range(cfg.n_layers):
+        mixer, akind, _ = slot_kinds(cfg, i % cfg.group_size)
+        if mixer == "attn":
+            cache.append(
+                attn.init_kv_cache(cfg, batch, seq_len, kind=akind, dtype=dtype, device=dev)
+            )
+        else:
+            cache.append(mb.init_mamba_cache(cfg, batch, dtype, dev))
+    return cache
 
 
 def decode_step(
     cfg: ModelConfig,
     params: LM,
-    cache: list[attn.KVCache],
+    cache: list[attn.KVCache | mb.MambaCache],
     tokens: torch.Tensor,  # (B, 1) int
     pos: int,  # position of this token
     *,
     cast: bool = True,
-) -> tuple[torch.Tensor, list[attn.KVCache]]:
+) -> tuple[torch.Tensor, list[attn.KVCache | mb.MambaCache]]:
     """One token for every sequence in the batch against the cache.
     Returns ``(logits (B, padded vocab), cache)``; the cache is updated in
     place (the reference returns a new one).  ``cast=False`` takes
@@ -252,11 +299,12 @@ def decode_step(
         params = _step_params(cfg, params)
     x = _embed_tokens(cfg, params, tokens)
     for i, layer in enumerate(params.layers):
-        _, akind, _ = slot_kinds(cfg, i % cfg.group_size)
+        mixer, akind, ffn = slot_kinds(cfg, i % cfg.group_size)
         h = rms_norm(x, layer.norm1, cfg.norm_eps)
-        h, cache[i] = attn.mha_decode(cfg, layer.mixer, h, cache[i], pos, kind=akind)
-        x = x + h
-        h = rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + swiglu(h, layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down)
+        if mixer == "attn":
+            h, cache[i] = attn.mha_decode(cfg, layer.mixer, h, cache[i], pos, kind=akind)
+        else:
+            h, cache[i] = mb.mamba_decode(cfg, layer.mixer, h, cache[i])
+        x, _ = _ffn(cfg, layer, x + h, ffn, decode=True)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _unembed(cfg, params, x)[:, 0], cache

@@ -1,6 +1,8 @@
 """The port on an NVIDIA GPU: the CUDA selective-scan and flash-attention
-kernels against their plain versions, and the sweep, the service and the
-reduced LMs' prefill on the card against the same port code on the CPU.  Every test here is marked ``gpu`` and skips
+kernels against their plain versions, and the sweep, the service, the
+reduced LMs' prefill (attention, mamba and MoE layers), the mamba decode
+step and the MoE dispatch on the card against the same port code on the
+CPU.  Every test here is marked ``gpu`` and skips
 without a card; this file imports neither JAX nor the JAX package, so it
 runs where only torch is installed:
 
@@ -290,6 +292,85 @@ def test_reduced_prefill_on_the_card_matches_cpu(cuda, name):
     assert flash_kernel.flash_attention.launches == before + cfg.n_layers
     scale = float(want.float().abs().max())
     assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "jamba-1.5-large-398b"])
+def test_reduced_mamba_archs_on_the_card_match_cpu(cuda, name):
+    """float32 compute, the same weights on both: the prefill launches K2
+    once per mamba layer and K1 once per attention layer, its logits lie
+    within rel 1e-4 of the CPU's (K2's own tolerance), and eight
+    teacher-forced decode steps (conv window and state on the card) give
+    the CPU's tokens and logits.  The caches are float32: a bf16 conv
+    window rounds the two devices' last-bit differences across bf16
+    boundaries and the state carries them (``tests/test_torch_lm.py``)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(name).reduced(), compute_dtype="float32")
+    kinds = [M.slot_kinds(cfg, i % cfg.group_size)[0] for i in range(cfg.n_layers)]
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(cuda)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40)),
+                             dtype=torch.int32)
+    step = make_prefill_step(cfg)
+    want = step(params, {"tokens": tokens})
+    scans, flashes = scan_kernel.selective_scan.launches, flash_kernel.flash_attention.launches
+    got = step(card_params, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert scan_kernel.selective_scan.launches - scans == kinds.count("mamba")
+    assert flash_kernel.flash_attention.launches - flashes == kinds.count("attn")
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+    decode = make_decode_step(cfg)
+    caches = [M.init_cache(cfg, 2, 8, torch.float32, device=d) for d in ("cpu", cuda)]
+    for t in range(8):
+        want_tok, want, caches[0] = decode(params, caches[0], tokens[:, t : t + 1], t)
+        tok, got, caches[1] = decode(card_params, caches[1], tokens[:, t : t + 1].to(cuda), t)
+        assert torch.equal(tok.cpu(), want_tok)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zero_router", [False, True])
+def test_moe_dispatch_on_the_card_matches_cpu(cuda, dtype, zero_router):
+    """The batched MoE dispatch on the card: the top-k experts (ties to the
+    lower index under a zero router), the keep mask and the slots equal
+    the CPU's, tokens are dropped over capacity, and the output lies
+    within rel 1e-4 of the CPU's in float32 (2e-2 elementwise in bf16)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), n_experts=16,
+                              experts_per_token=4, capacity_factor=0.5)
+    p = moe.init_moe_params(cfg, torch.Generator().manual_seed(0), dtype, "cpu")
+    if zero_router:
+        p.router.zero_()
+    x = torch.randn((512, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(dtype)
+    C = moe._capacity(cfg, 512)
+    want = moe.route(cfg, x, p.router, C)
+    got = moe.route(cfg, x.to(cuda), p.router.to(cuda), C)
+    for field in ("top_i", "keep", "slot"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    if zero_router:
+        assert bool((want.top_i == torch.arange(4)).all())
+    assert int((want.top_p > 0).sum() - want.keep.sum()) > 0  # capacity dropped tokens
+
+    card = copy.deepcopy(p).to(cuda)
+    out, aux = moe.local_moe(cfg, x.to(cuda), card.router, card.w_gate, card.w_up, card.w_down)
+    ref, ref_aux = moe.local_moe(cfg, x, p.router, p.w_gate, p.w_up, p.w_down)
+    assert out.device.type == "cuda" and out.dtype == dtype
+    if dtype == torch.float32:
+        assert float((out.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    else:
+        torch.testing.assert_close(out.cpu().float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert float(aux) == pytest.approx(float(ref_aux), rel=1e-5)
 
 
 def test_sweep_on_the_card_matches_cpu(cuda):

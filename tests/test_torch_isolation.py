@@ -37,6 +37,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.mamba_scan.kernel" in modules
     assert "repro_torch.kernels.flash_attention.kernel" in modules
     assert "repro_torch.launch.serve" in modules
+    assert {"repro_torch.models.mamba", "repro_torch.models.moe"} <= set(modules)
     script = textwrap.dedent(
         f"""
         import importlib, importlib.abc, sys
