@@ -65,6 +65,18 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
+def routing_feeds_state(cfg: ModelConfig) -> bool:
+    """Whether an MoE layer's expert choices feed a later mamba layer's
+    state (jamba).  A top-k choice near a tie flips under a last-bit
+    change of its inputs, and the state carries the flipped token's
+    change to every later position; so two bf16 runs of such a model
+    that round in different places (two devices, or the port and the
+    reference) compare only with their routers zeroed, where every
+    choice ties and both break ties by index."""
+    kinds = {k for s in range(cfg.group_size) for k in slot_kinds(cfg, s)}
+    return {"mamba", "moe"} <= kinds
+
+
 def tree_param_count(cfg: ModelConfig) -> int:
     """The parameters :func:`init_params` makes, as many as the
     reference's tree holds.  ``cfg.param_count()`` (the reference's own
@@ -197,14 +209,14 @@ def _unembed(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return unembed(x, params.lm_head, transpose=False, cap=cfg.final_logit_softcap)
 
 
-def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str, *, decode: bool = False):
+def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str):
     """The residual FFN half of a layer: ``(x, aux)``, where ``aux`` is an
     MoE's balance loss and ``None`` for any other FFN."""
     if kind == "none":
         return x, None
     h = rms_norm(x, layer.norm2, cfg.norm_eps)
     if kind == "moe":
-        h, aux = moe_mod.moe_apply(cfg, layer.ffn, h, decode=decode)
+        h, aux = moe_mod.moe_apply(cfg, layer.ffn, h)
         return x + h, aux
     return x + swiglu(h, layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down), None
 
@@ -305,6 +317,6 @@ def decode_step(
             h, cache[i] = attn.mha_decode(cfg, layer.mixer, h, cache[i], pos, kind=akind)
         else:
             h, cache[i] = mb.mamba_decode(cfg, layer.mixer, h, cache[i])
-        x, _ = _ffn(cfg, layer, x + h, ffn, decode=True)
+        x, _ = _ffn(cfg, layer, x + h, ffn)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _unembed(cfg, params, x)[:, 0], cache

@@ -144,15 +144,13 @@ def local_moe(
     return out, r.aux
 
 
-def moe_apply(
-    cfg: ModelConfig, p: MoE, x: torch.Tensor, *, decode: bool = False
-) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over ``x`` (B, S, D): ``(out (B, S, D) in x's dtype,
-    aux)``.  On one device prefill and decode (``decode=True``) take the
-    same path, as in the reference with no mesh.  An all-to-all request
-    (``cfg.moe_impl == "a2a"``) or a process group of several ranks (a
-    mesh) raises: expert parallelism across cards is not ported yet."""
-    del decode  # one device: the reference's decode path is the same math
+    aux)``.  On one device prefill and decode take the same path, as in
+    the reference with no mesh (its ``decode`` flag only changes the
+    sharded paths).  An all-to-all request (``cfg.moe_impl == "a2a"``) or
+    a process group of several ranks (a mesh) raises: expert parallelism
+    across cards is not ported yet."""
     if cfg.moe_impl != "gather" or _multi_rank():
         raise NotImplementedError(
             f"{cfg.name}: expert-parallel MoE across cards (moe_impl={cfg.moe_impl!r}) "

@@ -134,6 +134,7 @@ FLASH_CASES = [
     (1, 4, 2, 300, 300, 64, {}),
     (1, 4, 2, 77, 301, 16, dict(window=40)),
     (1, 4, 2, 300, 300, 256, dict(window=100, logit_cap=50.0)),
+    (2, 16, 2, 256, 256, 128, {}),  # GQA 8:1 at dh 128, as qwen3-moe-30b-a3b's prefill
 ]
 # the bf16 tensor-core kernel's own edges: dh 80 (padded to 128 by TMA's
 # zero fill), ragged and right-aligned; Sq < Skv at dh 128; a window edge

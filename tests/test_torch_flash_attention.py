@@ -31,6 +31,7 @@ SWEEP = [
     (1, 4, 1, 64, 256, 32, 64),  # MQA, Skv > Sq (right-aligned)
     (1, 2, 2, 256, 256, 128, 128),  # wide head
     (1, 4, 2, 128, 128, 80, 64),  # h2o-danube-1.8b's head dim (2560 / 32)
+    (1, 8, 1, 128, 128, 64, 64),  # GQA 8:1 (qwen3-moe-30b-a3b's 32:4)
 ]
 
 

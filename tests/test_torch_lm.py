@@ -23,13 +23,15 @@ of ``decode_step``s against a bf16 cache and ``generate``:
   float32.  Its decode step is float32 on both sides, so decode and
   generate keep rel 1e-4 and equal tokens.  ``tests/test_torch_mamba.py``
   holds the mixer at rel 1e-4 against the reference's float32 pieces.
-* jamba in bf16 runs with its MoE routers zeroed on both sides.  With a
-  random router, bf16 rounding flips near-tied top-k choices (even one
-  layer on identical inputs does), and the mamba state carries a flipped
-  token's change to every later position: the reference itself moves by
-  17% of its logits' scale when only its scan's precision changes.  A
-  zero router makes every choice a tie that both sides break by index;
-  capacity still drops tokens.  float32 keeps the random routers.
+* jamba, whose MoE routing feeds its mamba states
+  (``model.routing_feeds_state``), runs in bf16 with its routers zeroed
+  on both sides.  With a random router, bf16 rounding flips near-tied
+  top-k choices (even one layer on identical inputs does), and the mamba
+  state carries a flipped token's change to every later position: the
+  reference itself moves by 17% of its logits' scale when only its
+  scan's precision changes.  A zero router makes every choice a tie that
+  both sides break by index; capacity still drops tokens.  float32 keeps
+  the random routers.
 
 The reference's attention core on this path is ``blocked_attention``;
 the port's is K1's plain version (the CPU path of ``mha_flash``), and
@@ -91,7 +93,7 @@ def _tol(cfg, compute_dtype, *, bf16_scan=False) -> float:
     scan (``bf16_scan``); bfloat16: the bf16 tolerance, elementwise."""
     if compute_dtype == "float32":
         return BF16_TOL if bf16_scan else F32_RTOL
-    return BF16_TOL_DEEP_HYBRID if _has_mamba(cfg) and _has_moe(cfg) else BF16_TOL
+    return BF16_TOL_DEEP_HYBRID if M.routing_feeds_state(cfg) else BF16_TOL
 
 
 def _assert_logits(got, want, cfg, compute_dtype, what, *, bf16_scan=False):
@@ -103,13 +105,16 @@ def _assert_logits(got, want, cfg, compute_dtype, what, *, bf16_scan=False):
 
 
 def _decode_cache_dtype(cfg):
-    """The decode test's cache dtype: bf16, as served, except for an arch
-    with a mamba slot.  Its bf16 conv window rounds each side's last-bit
-    differences across bf16 rounding boundaries, and the state carries
-    each flip forward: jamba's float32 logits drift to 4.7e-4 of their
-    scale over 36 steps with a bf16 window, 1.1e-5 with a float32 one
-    (bf16 attention caches alone).  ``generate`` keeps the bf16 cache."""
-    return "float32" if _has_mamba(cfg) else "bfloat16"
+    """The decode test's cache dtype: bf16, as served, except for jamba
+    (``routing_feeds_state``).  Its bf16 conv window rounds each side's
+    last-bit differences across bf16 rounding boundaries, the state
+    carries each flip forward and the routers turn it into other expert
+    choices: jamba's float32 logits drift to 4.7e-4 of their scale over
+    36 steps with a bf16 window, 1.1e-5 with a float32 one (bf16
+    attention caches alone).  falcon-mamba-7b, with no MoE, keeps the
+    served bf16 window within rel 1e-4 (2.2e-5 over 36 steps).
+    ``generate`` keeps the bf16 cache for every arch."""
+    return "float32" if M.routing_feeds_state(cfg) else "bfloat16"
 
 
 def _configs(name, compute_dtype):
@@ -134,7 +139,7 @@ def _case(name, compute_dtype):
     once per test process, with the tokens and parameters they used."""
     rcfg, pcfg = _configs(name, compute_dtype)
     rparams = RM.init_params(rcfg, jax.random.PRNGKey(0))
-    if compute_dtype == "bfloat16" and _has_mamba(pcfg) and _has_moe(pcfg):
+    if compute_dtype == "bfloat16" and M.routing_feeds_state(pcfg):
         rparams = _zero_routers(rparams)
     tokens = np.random.default_rng(1).integers(0, rcfg.vocab_size, (B, S)).astype(np.int32)
 
@@ -291,6 +296,14 @@ def test_full_size_counts(name, count, tree):
     else:
         assert (cfg.n_layers, cfg.n_experts, cfg.experts_per_token) == (48, 128, 8)
         assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff) == (32, 4, 128, 768)
+
+
+def test_routing_feeds_state_only_in_jamba():
+    """The one decoder-only arch whose MoE routing feeds mamba states,
+    where bf16 comparisons zero the routers."""
+    assert [n for n in ARCHS if M.routing_feeds_state(get_config(n).reduced())] == [
+        "jamba-1.5-large-398b"]
+    assert M.routing_feeds_state(get_config("jamba-1.5-large-398b"))
 
 
 @pytest.mark.parametrize("name", ["whisper-medium", "internvl2-2b"])

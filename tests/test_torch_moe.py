@@ -136,16 +136,16 @@ def test_dropped_tokens_get_no_expert_output():
 
 
 def test_moe_apply_matches_reference_moe_apply():
-    """Through ``moe_apply`` on (B, S, D) tokens, prefill and decode, as
-    the model calls it, against the reference's ``moe_apply`` with no
-    mesh."""
+    """Through ``moe_apply`` on (B, S, D) tokens, as the model calls it
+    in prefill and decode, against the reference's ``moe_apply`` with no
+    mesh and its ``decode`` flag off and on."""
     rcfg, pcfg = _configs(compute_dtype="float32")
     p, _ = _case(rcfg, 1, "float32")
     pp = PMOE.MoE(*(_tensor(p[n]) for n in PMOE.MoE.LEAVES))
     x = np.random.default_rng(7).standard_normal((2, 24, rcfg.d_model)).astype(np.float32)
     for decode, xs in ((False, x), (True, x[:, :1])):
         want, want_aux = RMOE.moe_apply(rcfg, p, jnp.asarray(xs), decode=decode)
-        got, aux = PMOE.moe_apply(pcfg, pp, torch.as_tensor(xs), decode=decode)
+        got, aux = PMOE.moe_apply(pcfg, pp, torch.as_tensor(xs))
         assert got.shape == xs.shape
         assert_rel_to_scale(got, want, rtol=F32_RTOL, what=f"decode={decode}")
         assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
