@@ -27,35 +27,46 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
 6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
    median error against the committed values, placements/s, and the
    noise-free sweep held against the same code on the CPU;
-7. service — the advisor service on E7-4830 v3 at 24 threads: batch tier,
+7. placement_search — ``optimize_placement`` and ``branch_and_bound`` on
+   E7-4830 v3 (24 threads) and E5-2699 v3 SNC-2 (16) against the card's
+   exhaustive sweep (0% regret), on the 16-node snc2-8s at 32 threads
+   (held against the CPU, one ascent step profiled), and the tight
+   16-node machine's cold (4,000 nodes, no certificate) and warm (0
+   nodes, certified) receipts;
+8. schedule_search — the three schedule-search records, ``gain_pct``
+   within 0.005 pp of the CPU's, the prohibitive case exactly 0;
+9. service — the advisor service on E7-4830 v3 at 24 threads: batch tier,
    cache tier, a mixed stream, answers held against the CPU, concurrent
-   answers held against serial ones;
-8. lm_reduced — the reduced llama3-8b, gemma2-9b, h2o-danube-1.8b,
+   answers held against serial ones; the search tier (snc2-8s at 32
+   threads) and the schedule tier (E5-2630 v3) against the CPU; the
+   advisor CLI's stream with 2% search queries;
+10. lm_reduced — the reduced llama3-8b, gemma2-9b, h2o-danube-1.8b,
    falcon-mamba-7b, jamba-1.5-large-398b, mixtral-8x22b and
    qwen3-moe-30b-a3b: prefill and generate on the card against the port
    on the CPU with the same weights, K1 launched once per attention layer
    and K2 once per mamba layer;
-9. lm_danube — h2o-danube-1.8b at full width and depth (random bf16
+11. lm_danube — h2o-danube-1.8b at full width and depth (random bf16
    weights from a seed): prefill of 2 x 8192 tokens, where the 4096-token
    window acts, K1 (dh 80) launched once per layer;
-10. lm_serve — llama3-8b at full width and depth (random weights from a
+12. lm_serve — llama3-8b at full width and depth (random weights from a
    seed, bf16): init, prefill of 4 x 2048 tokens (K1 launched once per
    layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
    logits held against the decode path's;
-11. lm_falcon_mamba — falcon-mamba-7b at full width and depth (64 mamba
+13. lm_falcon_mamba — falcon-mamba-7b at full width and depth (64 mamba
    layers, bf16): prefill of 2 x 2048 tokens (K2 launched once per
    layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
    logits held against the decode path's in float32 and bf16, with the
    bf16 gap read at 8, 16, 32 and 64 layers and each bf16 path's
    distance from its float32 run;
-12. lm_qwen3_moe — qwen3-moe-30b-a3b at full width and depth (48 layers
+14. lm_qwen3_moe — qwen3-moe-30b-a3b at full width and depth (48 layers
    of GQA 32:4 attention and 128 experts top-8, 61.1 GB of bf16 weights,
    alone on the card): prefill of 2 x 2048 tokens (K1 launched once per
    layer) with the count of (token, expert) assignments dropped over
    capacity, and generate (4 x 16 prompt + 16 tokens).
 
-Then one line listing every kernel of the port with its launches, error
-and times, the card's name and power limit as nvidia-smi prints them,
+Every profile whose kernel has a launch counter is held to it
+(``watched_complete``).  Then one line listing every kernel of the port
+with its launches, error and times, the card's name and power limit as nvidia-smi prints them,
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line; nothing is caught.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -131,7 +142,11 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_profile(fn, watch: str | None = None, top: int = 3) -> dict:
+PROFILE_TRIES = 3
+
+
+def device_profile(fn, watch: str | None = None, top: int = 3,
+                   expected: int | None = None) -> dict:
     """Where one call of ``fn`` spends its time: the host wall time (best
     of three unprofiled calls, each ending in a synchronise), the device
     time of the kernels one profiled call launched (the union of their
@@ -139,7 +154,14 @@ def device_profile(fn, watch: str | None = None, top: int = 3) -> dict:
     wall time, the ``top`` kernels with the most device time, the device
     time and count of the kernels whose name holds ``watch``, and the
     host's most frequent CUDA runtime calls (launches, synchronisations,
-    copies)."""
+    copies).
+
+    ``expected`` is the watched kernel's launches in one call, read from
+    its wrapper's counter.  The profiler can drop kernels from a trace, so
+    the profiled call is repeated, up to ``PROFILE_TRIES`` times, until
+    the trace lists exactly that many; ``watched_complete`` says whether it
+    did.  A trace that still lists another count fails the phase rather
+    than report a short device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -152,27 +174,39 @@ def device_profile(fn, watch: str | None = None, top: int = 3) -> dict:
         sync()
         walls.append(time.perf_counter() - t0)
     wall_ms = 1e3 * min(walls)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA
-    )
-    busy_us, end, per_name = 0.0, float("-inf"), {}
-    for start, stop, name in spans:
+    counts = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        events = prof.events()
+        spans = sorted(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in events
+            if e.device_type == DeviceType.CUDA
+        )
+        per_name = {}
+        for start, stop, name in spans:
+            ms, count = per_name.get(name, (0.0, 0))
+            per_name[name] = (ms + (stop - start) / 1e3, count + 1)
+        watched = [(ms, n) for name, (ms, n) in per_name.items() if watch and watch in name]
+        counts.append(sum(n for _, n in watched))
+        if expected is None or counts[-1] == expected:
+            break
+    complete = None if expected is None else counts[-1] == expected
+    check(complete is not False,
+          f"the profiler listed {counts} '{watch}' kernels in {len(counts)} traces of one "
+          f"call; its counter says {expected}")
+    busy_us, end = 0.0, float("-inf")
+    for start, stop, _ in spans:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
-        ms, count = per_name.get(name, (0.0, 0))
-        per_name[name] = (ms + (stop - start) / 1e3, count + 1)
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
     runtime = Counter(
-        e.name for e in prof.events()
+        e.name for e in events
         if e.device_type == DeviceType.CPU and e.name.startswith("cuda")
     )
     device_ms = busy_us / 1e3 if spans else None
-    watched = [(ms, n) for name, (ms, n) in per_name.items() if watch and watch in name]
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -182,7 +216,9 @@ def device_profile(fn, watch: str | None = None, top: int = 3) -> dict:
             {"name": name[:80], "ms": ms, "count": count} for name, (ms, count) in ranked
         ],
         "watched": {"name": watch, "ms": sum(ms for ms, _ in watched),
-                    "count": sum(n for _, n in watched)} if watch else None,
+                    "count": counts[-1], "expected": expected,
+                    "counts_per_trace": counts} if watch else None,
+        "watched_complete": complete,
         "runtime_calls": dict(runtime.most_common(5)),
     }
 
@@ -789,6 +825,292 @@ def phase_service() -> None:
     )
     check(obj_rel <= 1e-4, f"service objective differs from the CPU by rel {obj_rel}")
     check(tie_rel <= 1e-4, f"a card placement is no tie of the CPU's: rel {tie_rel}")
+    phase_service_search_and_schedule()
+
+
+def schedule_query():
+    """The phased query of the service's schedule tier: the flip workload
+    as two query signatures of 5 s each."""
+    from repro_torch.serve import QuerySignature
+
+    return [(QuerySignature((0.7, 0.1, 0.0), (0.0, 0.0, 0.0), read_bpi=5.0,
+                            static_socket=s), 5.0) for s in (0, 1)]
+
+
+def phase_service_search_and_schedule() -> None:
+    """The search and schedule tiers on the card: one snc2-8s query at 32
+    threads (tier ``search``), one phased query on E5-2630 v3 (tier
+    ``schedule``, then a cache hit), each against the same service on the
+    CPU; then the advisor CLI's stream with 2% search queries."""
+    from repro_torch.core.numa import E5_2630_V3, MigrationModel
+    from repro_torch.launch.advisor_serve import search_machine, serve_stream, signature_pool
+    from repro_torch.serve import AdvisorService
+
+    m16 = search_machine()
+    sig = signature_pool(1, seed=77)[0]
+    model = MigrationModel(thread_move_bytes=1e6, page_move_bytes=1e6)
+    answers = {}
+    for device in ("cuda", "cpu"):
+        with AdvisorService(device=device) as svc:
+            search, search_s = timed(lambda: svc.query(m16, sig, 32, timeout=600))
+            sched, sched_s = timed(lambda: svc.query_schedule(
+                E5_2630_V3, schedule_query(), 8, model=model, timeout=600))
+            again = svc.query_schedule(E5_2630_V3, schedule_query(), 8, model=model)
+            answers[device] = (search, search_s, sched, sched_s, again is sched,
+                               svc.metrics.snapshot())
+    search, search_s, sched, sched_s, hit, snap = answers["cuda"]
+    search_cpu, _, sched_cpu, _, _, _ = answers["cpu"]
+    obj_rel = abs(search.objective - search_cpu.objective) / search_cpu.objective
+    emit(
+        "service_search_schedule",
+        search=dict(machine=m16.name, n_threads=32, tier=search.tier,
+                    placement=list(search.placement), objective=search.objective,
+                    predicted_bandwidth=search.predicted_bandwidth,
+                    optimal=search.optimal, wall_s=search_s,
+                    objective_rel_vs_cpu=obj_rel,
+                    same_placement_as_cpu=search.placement == search_cpu.placement),
+        schedule=dict(machine=E5_2630_V3.name, n_threads=8, tier=sched.tier,
+                      placements=[list(p) for p in sched.placements],
+                      gain_pct=sched.gain_pct, cpu_gain_pct=sched_cpu.gain_pct,
+                      wall_s=sched_s, second_ask_is_cache_hit=hit),
+        tier_counts=snap["tier_counts"],
+        latency_ms={k: v for k, v in snap.items() if k.endswith(("_p50_ms", "_p99_ms"))},
+    )
+    check(search.tier == "search", f"the snc2-8s query was answered by tier {search.tier}")
+    check(obj_rel <= 1e-4, f"search-tier objective rel {obj_rel} vs the CPU")
+    check(sched.tier == "schedule" and hit, "the phased query missed the schedule tier or cache")
+    check(abs(sched.gain_pct - sched_cpu.gain_pct) <= GAIN_TOL_PP,
+          f"schedule gain {sched.gain_pct} vs the CPU's {sched_cpu.gain_pct}")
+    check(snap["tier_counts"]["search"] == 1 and snap["tier_counts"]["schedule"] == 1,
+          f"tier counts {snap['tier_counts']}")
+
+    # the advisor CLI's stream: 1,000 queries, 80% hits, 2% on snc2-8s
+    with AdvisorService(device="cuda") as svc:
+        snap = serve_stream(svc, 1000, pool=32, hit_fraction=0.8, search_fraction=0.02)
+    emit("service_stream", search_fraction=0.02, **snap)
+    check(snap["queries"] == 1000, f"the stream answered {snap['queries']} of 1000")
+    check(snap["search_queries"] > 0, "the stream held no search-tier queries")
+    check(snap["retraces"] == 0, f"{snap['retraces']} new batch shapes after warmup")
+
+
+# the placement-search records' presets (benchmarks/sweep_baseline.json):
+# CG over every one-thread-per-core placement of the two 4-node machines
+SEARCH_PRESETS = (("E7_4830_V3", 24), ("E5_2699_V3_SNC2", 16))
+# regret of a placement tied with the optimum in exact arithmetic: float32
+# rounding of permuted placements (rel 1e-6)
+REGRET_TOL_PCT = 1e-4
+GAIN_TOL_PP = 0.005
+
+
+def tight_machine():
+    """The bandwidth-starved 16-node SNC machine of the reference's search
+    tests (tests/test_placement_search.py): fast/slow node pairs, links
+    and banks at 0.27 of snc2-8s's."""
+    from repro_torch.core.numa import make_machine
+
+    scale = 0.27
+    return make_machine(
+        "snc2-8s-tight", sockets=8, cores_per_socket=8, nodes_per_socket=2,
+        qpi_bw=25.6e9 * scale, core_rate=(2.4e9, 1.6e9) * 8,
+        local_read_bw=(52e9 * scale, 26e9 * scale) * 8,
+        local_write_bw=(28e9 * scale, 14e9 * scale) * 8,
+    )
+
+
+def timed(fn):
+    """``(result, seconds)`` of one call of ``fn``, ending in a synchronise."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def receipt(result, seconds: float) -> dict:
+    return dict(placement=list(result.placement), objective=result.objective,
+                evaluations=result.evaluations, nodes_expanded=result.nodes_expanded,
+                optimal=result.optimal, wall_s=seconds)
+
+
+def tie_gap(machine, wl_cpu, got, want) -> float:
+    """0 when the card's placement is the CPU's; else how far the CPU
+    scores the card's placement from the CPU's objective (a tie is 0 up
+    to rounding)."""
+    from repro_torch.core.numa import exact_objectives
+
+    if tuple(got.placement) == tuple(want.placement):
+        return 0.0
+    obj = float(exact_objectives(machine, wl_cpu, np.asarray([got.placement]))[0])
+    return abs(obj - want.objective) / abs(want.objective)
+
+
+def phase_placement_search() -> None:
+    """Placement search on the card, held against the port on the CPU:
+    gradient ascent and branch and bound on the two 4-node presets against
+    the card's own exhaustive sweep (0% regret), the 16-node snc2-8s at 32
+    threads (too large to sweep) with one ascent step profiled, and the
+    tight 16-node machine's cold and warm certificates."""
+    from repro_torch.core.numa import (
+        branch_and_bound,
+        exact_objectives,
+        optimize_placement,
+    )
+    from repro_torch.core.numa import machine as machines
+    from repro_torch.core.numa.benchmarks import benchmark_workload
+    from repro_torch.core.numa.evaluate import placement_array
+    from repro_torch.core.numa.search import _ascend_starts, _classes_for
+    from repro_torch.launch.advisor_serve import search_machine
+
+    for preset, n in SEARCH_PRESETS:
+        m = getattr(machines, preset)
+        wl = benchmark_workload("CG", n, device="cuda")
+        wl_cpu = benchmark_workload("CG", n, device="cpu")
+        table = placement_array(m, n)
+        exhaustive, sweep_s = timed(lambda: exact_objectives(m, wl, table))
+        best = float(exhaustive.max())
+        row = {tuple(int(v) for v in p): i for i, p in enumerate(table)}
+        optimize_placement(m, wl)  # first call
+        grad, grad_s = timed(lambda: optimize_placement(m, wl))
+        bnb, bnb_s = timed(lambda: branch_and_bound(m, wl))
+        regret = {k: 100.0 * (best - float(exhaustive[row[r.placement]])) / best
+                  for k, r in (("gradient", grad), ("branch_and_bound", bnb))}
+        grad_cpu, bnb_cpu = optimize_placement(m, wl_cpu), branch_and_bound(m, wl_cpu)
+        ties = {"gradient": tie_gap(m, wl_cpu, grad, grad_cpu),
+                "branch_and_bound": tie_gap(m, wl_cpu, bnb, bnb_cpu)}
+        emit(
+            "placement_search",
+            machine=m.name, n_threads=n, benchmark="CG", search_space=len(table),
+            exhaustive_s=sweep_s, exhaustive_best=best,
+            gradient=receipt(grad, grad_s), branch_and_bound=receipt(bnb, bnb_s),
+            regret_pct=regret,
+            cpu_objective={"gradient": grad_cpu.objective,
+                           "branch_and_bound": bnb_cpu.objective},
+            same_placement_as_cpu={"gradient": grad.placement == grad_cpu.placement,
+                                   "branch_and_bound": bnb.placement == bnb_cpu.placement},
+            other_placement_objective_rel_vs_cpu=ties,
+        )
+        for k, v in regret.items():
+            check(v <= REGRET_TOL_PCT, f"{m.name}: {k} regret {v}% vs the exhaustive sweep")
+        check(bnb.optimal and bnb.nodes_expanded == bnb_cpu.nodes_expanded,
+              f"{m.name}: branch and bound receipts differ from the CPU's")
+        for k, v in ties.items():
+            check(v <= 1e-4, f"{m.name}: {k} placement is no tie of the CPU's: rel {v}")
+
+    # snc2-8s: 16 nodes, about 1.07e10 compositions at 32 threads
+    m16 = search_machine()
+    wl = benchmark_workload("CG", 32, device="cuda")
+    wl_cpu = benchmark_workload("CG", 32, device="cpu")
+    _, first_s = timed(lambda: optimize_placement(m16, wl))
+    grad, grad_s = timed(lambda: optimize_placement(m16, wl))
+    bnb, bnb_s = timed(lambda: branch_and_bound(
+        m16, wl, gap=0.01, max_nodes=20_000, seed_placements=[grad.placement]))
+    (grad_cpu, grad_cpu_s) = timed(lambda: optimize_placement(m16, wl_cpu))
+    bnb_cpu = branch_and_bound(m16, wl_cpu, gap=0.01, max_nodes=20_000,
+                               seed_placements=[grad_cpu.placement])
+    obj_rel = abs(bnb.objective - bnb_cpu.objective) / bnb_cpu.objective
+    ties = {"gradient": tie_gap(m16, wl_cpu, grad, grad_cpu),
+            "branch_and_bound": tie_gap(m16, wl_cpu, bnb, bnb_cpu)}
+    # one ascent step of optimize_placement's 16 starts, under the profiler
+    logits0 = np.zeros((16, m16.n_nodes), np.float32)
+    classes = _classes_for(wl, None)
+    step_profile = device_profile(
+        lambda: _ascend_starts(m16, wl, logits0, classes, 1, 0.25, 0.25), top=5)
+    emit(
+        "placement_search",
+        machine=m16.name, n_nodes=m16.n_nodes, n_threads=32, benchmark="CG",
+        gradient_first_call_s=first_s,
+        gradient=receipt(grad, grad_s),
+        branch_and_bound=receipt(bnb, bnb_s),
+        cpu_gradient=receipt(grad_cpu, grad_cpu_s),
+        cpu_branch_and_bound_objective=bnb_cpu.objective,
+        branch_and_bound_objective_rel_vs_cpu=obj_rel,
+        other_placement_objective_rel_vs_cpu=ties,
+        ascent_steps=150,
+        ascent_step_profile=step_profile,
+    )
+    check(obj_rel <= 1e-4, f"snc2-8s branch and bound objective rel {obj_rel} vs the CPU")
+    for k, v in ties.items():
+        check(v <= 1e-4, f"snc2-8s {k} placement is no tie of the CPU's: rel {v}")
+
+    # the tight machine: cold B&B spends its budget, the warm start certifies
+    tight = tight_machine()
+    wl = benchmark_workload("CG", 48, device="cuda")
+    cold, cold_s = timed(lambda: branch_and_bound(tight, wl, gap=0.0, max_nodes=4000))
+    warm, warm_s = timed(lambda: branch_and_bound(
+        tight, wl, gap=0.0, max_nodes=4000, advisor_seeds=8))
+    emit("placement_search", machine=tight.name, n_nodes=tight.n_nodes, n_threads=48,
+         benchmark="CG", cold=receipt(cold, cold_s), warm=receipt(warm, warm_s))
+    check(not cold.optimal and cold.nodes_expanded == 4000,
+          f"tight machine cold B&B: optimal={cold.optimal}, {cold.nodes_expanded} nodes")
+    check(warm.optimal and warm.nodes_expanded == 0,
+          f"tight machine warm B&B: optimal={warm.optimal}, {warm.nodes_expanded} nodes")
+
+
+def flip_phases(device, n: int = 8):
+    """Two static-heavy phases whose hot buffer flips between sockets
+    (benchmarks/schedule_search.py's ``_flip_phases``)."""
+    from repro_torch.core.numa import mixed_workload
+
+    return [(mixed_workload(f"phase-s{s}", n, read_mix=(0.7, 0.1, 0.0), read_bpi=5.0,
+                            static_socket=s, device=device), 5.0) for s in (0, 1)]
+
+
+def tri_phases(device):
+    """The 4-socket 3-phase record's phases (benchmarks/schedule_search.py)."""
+    from repro_torch.core.numa import mixed_workload
+
+    return [
+        (mixed_workload("tri-s0", 24, read_mix=(0.7, 0.1, 0.0), read_bpi=4.0,
+                        static_socket=0, device=device), 4.0),
+        (mixed_workload("tri-s2", 24, read_mix=(0.7, 0.1, 0.0), read_bpi=4.0,
+                        static_socket=2, device=device), 4.0),
+        (mixed_workload("tri-local", 24, read_mix=(0.1, 0.6, 0.1), read_bpi=4.0,
+                        device=device), 2.0),
+    ]
+
+
+# the three schedule-search records (benchmarks/sweep_baseline.json):
+# label, machine, phases, bytes per moved thread and page, committed gain
+SCHEDULE_RECORDS = (
+    ("2-socket flip (cheap migration)", "E5_2630_V3", flip_phases, 1e6, 0.9125),
+    ("2-socket flip (prohibitive migration)", "E5_2630_V3", flip_phases, 1e13, 0.0),
+    ("4-socket 3-phase (cheap migration)", "E7_4830_V3", tri_phases, 1e6, 1.2227),
+)
+
+
+def phase_schedule_search() -> None:
+    """The three schedule-search records on the card against the port on
+    the CPU: ``gain_pct`` within 0.005 pp, the prohibitive case exactly 0
+    with the static schedule."""
+    from repro_torch.core.numa import MigrationModel, optimize_schedule, phased_workload
+    from repro_torch.core.numa import machine as machines
+
+    for label, preset, phases, cost, committed in SCHEDULE_RECORDS:
+        m = getattr(machines, preset)
+        model = MigrationModel(thread_move_bytes=cost, page_move_bytes=cost)
+        pw = phased_workload(label, phases("cuda"))
+        _, first_s = timed(lambda: optimize_schedule(m, pw, model=model))
+        res, wall_s = timed(lambda: optimize_schedule(m, pw, model=model))
+        cpu = optimize_schedule(m, phased_workload(label, phases("cpu")), model=model)
+        emit(
+            "schedule_search",
+            record=label, machine=m.name, n_threads=pw.n_threads, phases=len(pw.phases),
+            gain_pct=res.gain_pct, cpu_gain_pct=cpu.gain_pct,
+            committed_gain_pct=committed,
+            first_call_s=first_s, wall_s=wall_s,
+            candidates=res.candidates, states_expanded=res.states_expanded,
+            placements=[list(p) for p in res.schedule.placements],
+            moved_threads=sum(res.schedule.moved_threads),
+            moved_pages=sum(res.schedule.moved_pages),
+        )
+        check(abs(res.gain_pct - cpu.gain_pct) <= GAIN_TOL_PP,
+              f"{label}: gain {res.gain_pct} vs the CPU's {cpu.gain_pct}")
+        if committed == 0.0:
+            check(res.gain_pct == 0.0, f"{label}: gain {res.gain_pct}, not exactly 0")
+            check(len(set(res.schedule.placements)) == 1
+                  and sum(res.schedule.moved_threads) == sum(res.schedule.moved_pages) == 0,
+                  f"{label}: the schedule is not the static one")
+        else:
+            check(res.gain_pct > 0.0, f"{label}: no gain over the static schedule")
 
 
 def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -982,7 +1304,8 @@ def phase_lm_danube() -> None:
         prefill_tokens_per_s=B * S / min(walls),
         prefill_bound_ms=prefill_ops / BF16_OPS_PER_S * 1e3,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-        profile=device_profile(lambda: step(params, batch), watch="flash_fwd"),
+        profile=device_profile(lambda: step(params, batch), watch="flash_fwd",
+                               expected=launches),
     )
     del params, logits
     torch.cuda.empty_cache()
@@ -1034,7 +1357,8 @@ def phase_lm_serve() -> int:
         check(bool(torch.isfinite(out).all()), "prefill logits are not finite")
     prefill_s = min(walls)
     prefill_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prefill_profile = device_profile(lambda: step(params, batch), watch="flash_fwd")
+    prefill_profile = device_profile(lambda: step(params, batch), watch="flash_fwd",
+                                     expected=path_launches)
     # least time: 2 operations per weight and token in the layers' matmuls,
     # the lm_head for the last position only, and K1's work, at bf16 peak
     layer_weights = cfg.param_count() - 2 * cfg.padded_vocab * cfg.d_model - cfg.d_model
@@ -1125,7 +1449,8 @@ def phase_lm_falcon_mamba() -> int:
     check(logits.shape == (B, cfg.padded_vocab), f"falcon prefill logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "falcon prefill logits are not finite")
     walls = wall_times(lambda: step(params, batch), 3)
-    profile = device_profile(lambda: step(params, batch), watch="selective_scan", top=10)
+    profile = device_profile(lambda: step(params, batch), watch="selective_scan", top=10,
+                             expected=path_k2)
     # least time: the layers' matmuls (2 operations per weight and token,
     # the lm_head for the last position only) at bf16 peak, then each
     # layer's scan at K2's bytes bound
@@ -1298,7 +1623,8 @@ def phase_lm_qwen3_moe() -> None:
     loads = torch.stack(loads).tolist()
 
     walls = wall_times(lambda: step(params, batch), 3)
-    profile = device_profile(lambda: step(params, batch), watch="flash_fwd", top=10)
+    profile = device_profile(lambda: step(params, batch), watch="flash_fwd", top=10,
+                             expected=k1)
     # least time: every expert's (C+1)-row buffer through its three
     # products (the reference's work), the attention projections and the
     # router for every token, K1's causal pairs and the last position's
@@ -1377,6 +1703,8 @@ def main() -> int:
     flash = phase_flash_attention()
     phase_quickstart()
     phase_sweeps()
+    phase_placement_search()
+    phase_schedule_search()
     phase_service()
     phase_lm_reduced()
     phase_lm_danube()
@@ -1398,7 +1726,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # the devices this run used: cuda:0 alone
+            "count": torch.cuda.device_count(),
         },
     }), flush=True)
     return 0

@@ -29,6 +29,8 @@ that large errors concentrate where little data moves.
 
 from __future__ import annotations
 
+from typing import Iterator
+
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.numa.workload import (
     Workload,
@@ -97,3 +99,11 @@ def suite_names(include_violators: bool = True) -> list[str]:
         names.append("Page rank")
     return names
 
+
+
+def suite(
+    n_threads: int, include_violators: bool = True, *, device=DEFAULT_DEVICE
+) -> Iterator[Workload]:
+    """Yield every Table 1 benchmark as an ``n_threads``-thread workload."""
+    for name in suite_names(include_violators):
+        yield benchmark_workload(name, n_threads, device=device)

@@ -11,7 +11,8 @@
   compare against simulated measurements — all workloads and placements
   in one pass over the structured progressive fill.
 * :func:`fitted_signatures`, :func:`evaluate_accuracy`,
-  :func:`evaluate_suite`: the paper's §6 evaluations over that engine.
+  :func:`evaluate_suite`, :func:`evaluate_stability`: the paper's §6
+  evaluations over that engine.
 
 Errors are reported the paper's way: per counter measurement, as a
 fraction of the run's total bandwidth.  Fitted signatures are cached
@@ -41,6 +42,7 @@ from repro_torch.core.bwsig import (
     DirectionSignature,
     fit_signature,
     misfit_score,
+    signature_distance,
 )
 from repro_torch.core.numa.benchmarks import benchmark_workload, suite_names
 from repro_torch.core.numa.machine import MachineSpec, canonical_bank_assignment
@@ -527,12 +529,14 @@ def _workload_fingerprint(wl: Workload) -> tuple:
 
 def _cache_key(machine, wl, noise_std, background_bw, profile_noise, i) -> tuple:
     """Content key of one fit: the machine fingerprint, the workload's
-    digest, the noise level and (for a noisy fit) the digest of the
-    profiling draws the fit consumed."""
+    digest and device (a fit's tensors live where its workload does), the
+    noise level and (for a noisy fit) the digest of the profiling draws
+    the fit consumed."""
     drawn = "" if profile_noise is None else _digest(f[i] for f in profile_noise)
     return (
         machine.fingerprint(),
         _workload_fingerprint(wl),
+        str(wl.device),
         float(noise_std),
         float(background_bw),
         drawn,
@@ -685,4 +689,70 @@ def evaluate_suite(
         all_errors=all_errors,
         median_error_pct=float(np.median(all_errors)),
         p75_error_pct=float(np.percentile(all_errors, 75)),
+    )
+
+
+class StabilityResult(NamedTuple):
+    """Signature stability across machines: how much each benchmark's
+    fitted signature moves when refit on a different machine (§6.3)."""
+
+    names: list[str]
+    read_change: dict[str, float]
+    write_change: dict[str, float]
+    combined_change: dict[str, float]
+    mean_combined_pct: float
+    median_combined_pct: float
+
+
+def evaluate_stability(
+    machine_a: MachineSpec,
+    machine_b: MachineSpec,
+    n_threads_a: int | None = None,
+    n_threads_b: int | None = None,
+    *,
+    noise_std: float = 0.0,
+    include_violators: bool = True,
+    noise: tuple[CounterNoise, CounterNoise] | None = None,
+    seed: int = 0,
+    device=DEFAULT_DEVICE,
+) -> StabilityResult:
+    """Fit each suite benchmark on both machines and report the bandwidth
+    reallocated between the two signatures (paper Figures 13-15), each
+    machine's suite fitted in one batched (cached) pass.
+
+    A noisy call takes the profiling draws of machine A's and machine B's
+    fits from ``noise`` (leading ``(benchmarks, 2)`` axes each) or, without
+    it, draws A's and then B's from a generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    if n_threads_a is None:
+        n_threads_a = _default_suite_threads(machine_a)
+    if n_threads_b is None:
+        n_threads_b = _default_suite_threads(machine_b)
+    names = suite_names(include_violators)
+    wl_a = [benchmark_workload(name, n_threads_a, device=dev) for name in names]
+    wl_b = [benchmark_workload(name, n_threads_b, device=dev) for name in names]
+    noisy = noise_std > 0.0
+    if noisy and noise is None:
+        generator = default_generator(dev, seed)
+        noise = tuple(
+            draw_counter_noise((len(names), 2), m.n_nodes, generator, dev)
+            for m in (machine_a, machine_b)
+        )
+    noise_a, noise_b = noise if noisy else (None, None)
+    fits_a = fitted_signatures(machine_a, wl_a, noise_std=noise_std, noise=noise_a)
+    fits_b = fitted_signatures(machine_b, wl_b, noise_std=noise_std, noise=noise_b)
+
+    read_c, write_c, comb_c = {}, {}, {}
+    for name, (sig_a, csig_a, _), (sig_b, csig_b, _) in zip(names, fits_a, fits_b):
+        read_c[name] = float(signature_distance(sig_a.read, sig_b.read)) * 100
+        write_c[name] = float(signature_distance(sig_a.write, sig_b.write)) * 100
+        comb_c[name] = float(signature_distance(csig_a.read, csig_b.read)) * 100
+    vals = np.asarray(list(comb_c.values()))
+    return StabilityResult(
+        names=names,
+        read_change=read_c,
+        write_change=write_c,
+        combined_change=comb_c,
+        mean_combined_pct=float(vals.mean()),
+        median_combined_pct=float(np.median(vals)),
     )

@@ -585,6 +585,48 @@ def split_caps(
     return dense, rr, ww
 
 
+def _balanced_grad(g: torch.Tensor, x: torch.Tensor, z: torch.Tensor, y: torch.Tensor):
+    """``g`` times JAX's ``_balanced_eq(x, z, y)``: 1 where ``x`` alone
+    attains ``z``, 0.5 where ``x`` and ``y`` both do, else 0 — as a
+    product, so a NaN in ``g`` stays NaN even where the weight is 0."""
+    gw = torch.where(y == z, g * 0.5, g)
+    return torch.where(x == z, gw, g * 0.0).sum_to_size(x.shape)
+
+
+class _JaxExtremum(torch.autograd.Function):
+    """``torch.maximum``/``minimum`` with the derivative rule of
+    ``jnp.maximum``/``minimum``: the cotangent is *multiplied* by the
+    balanced indicator (ties split in half), where torch masks it.  The
+    two differ at ties and where the cotangent is not finite: JAX carries
+    ``nan * 0 = nan`` on, torch drops it."""
+
+    @staticmethod
+    def forward(ctx, a, b, take_max: bool):
+        out = torch.maximum(a, b) if take_max else torch.minimum(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        need_a, need_b, _ = ctx.needs_input_grad
+        return (
+            _balanced_grad(g, a, out, b) if need_a else None,
+            _balanced_grad(g, b, out, a) if need_b else None,
+            None,
+        )
+
+
+def jax_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.maximum`` whose gradient follows ``jnp.maximum``'s rule."""
+    return _JaxExtremum.apply(a, b, True)
+
+
+def jax_minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.minimum`` whose gradient follows ``jnp.minimum``'s rule."""
+    return _JaxExtremum.apply(a, b, False)
+
+
 def _progressive_fill_structured(
     dense: torch.Tensor,  # (N, G, 2s + L) unit usage: bank reads/writes, links
     rem_read: torch.Tensor,  # (N, C, s, s) off-diagonal remote read unit usage
@@ -605,6 +647,20 @@ def _progressive_fill_structured(
     dtype = dense.dtype
     x = torch.zeros((N, g), dtype=dtype, device=dense.device)
     frozen = torch.zeros((N, g), dtype=torch.bool, device=dense.device)
+    # maximum/minimum against scalar tensors rather than clamp: the same
+    # values; under autograd (the search's relaxed ascent) with the
+    # reference's derivative rule, so gradients match jax.grad's
+    zero = torch.zeros((), dtype=dtype, device=dense.device)
+    one = torch.ones((), dtype=dtype, device=dense.device)
+    eps = torch.full((), _EPS, dtype=dtype, device=dense.device)
+    if torch.is_grad_enabled() and (dense.requires_grad or mult.requires_grad):
+        maximum, minimum = jax_maximum, jax_minimum
+    else:
+        maximum, minimum = torch.maximum, torch.minimum
+
+    def lam_of(resid, act):
+        return torch.where(act > _EPS, resid / maximum(act, eps), torch.inf)
+
     for _ in range(iterations):
         active = ~frozen
         wt_frozen = torch.where(frozen, x, 0.0) * mult
@@ -618,12 +674,12 @@ def _progressive_fill_structured(
         fz_ww = (wf * rem_write).sum(1)
         act_ww = (wa * rem_write).sum(1)
 
-        lam_d = _lam(torch.clamp(dense_caps - fz_dense, min=0.0), act_dense)
-        lam_rr = _lam(torch.clamp(rr_caps - fz_rr, min=0.0), act_rr)
-        lam_ww = _lam(torch.clamp(ww_caps - fz_ww, min=0.0), act_ww)
-        lam_star = torch.minimum(
-            torch.minimum(lam_d.amin(1), lam_rr.amin((1, 2))),
-            torch.clamp(lam_ww.amin((1, 2)), max=1.0),
+        lam_d = lam_of(maximum(dense_caps - fz_dense, zero), act_dense)
+        lam_rr = lam_of(maximum(rr_caps - fz_rr, zero), act_rr)
+        lam_ww = lam_of(maximum(ww_caps - fz_ww, zero), act_ww)
+        lam_star = minimum(
+            minimum(lam_d.amin(1), lam_rr.amin((1, 2))),
+            minimum(lam_ww.amin((1, 2)), one),
         )  # (N,)
         tol = (lam_star * (1.0 + 1e-6))[:, None]
         bn_d = (lam_d <= tol).to(dtype)

@@ -4,12 +4,14 @@
 Spins up an :class:`~repro_torch.serve.AdvisorService` on the chosen
 device and drives a mixed query stream against it, printing the
 per-tier metrics snapshot (counts, batch histogram, p50/p99 latency,
-shape-retrace counter).  Until the search tier is ported the stream
-targets the sweep tier only: E7-4830 v3 at 24 threads (the reference's
-``--search-fraction`` is fixed at 0).
+shape-retrace counter).  The stream mixes cache hits and sweep misses
+on E7-4830 v3 at 24 threads with a ``--search-fraction`` of queries on
+a 16-node SNC machine (8 sockets x 2 nodes, 32 threads), whose two
+signatures are warmed first, so they are answered by the search tier
+once and then from the cache.
 
     PYTHONPATH=src python -m repro_torch.launch.advisor_serve --device cuda \
-        --queries 1000 --pool 32 --hit-fraction 0.8 --workers 4
+        --queries 1000 --pool 32 --hit-fraction 0.8 --search-fraction 0.02 --workers 4
 """
 
 from __future__ import annotations
@@ -94,26 +96,90 @@ def mixed_stream(
     n_queries: int,
     *,
     sweep_target,
+    search_sigs: list[QuerySignature] = (),
+    search_target=None,
     hit_fraction: float = 0.8,
+    search_fraction: float = 0.0,
     seed: int = 1,
 ) -> list[tuple]:
     """A deterministic shuffled stream mixing cache hits (drawn from
-    ``pool``, assumed pre-answered) and fresh sweep misses (consumed from
-    ``fresh``) against ``sweep_target = (machine_or_handle, n_threads)``
-    — the reference's stream with ``search_fraction=0``."""
+    ``pool``, assumed pre-answered), fresh sweep misses (consumed from
+    ``fresh``) and search-tier queries (drawn from ``search_sigs``,
+    assumed warmed) — the reference's stream.  ``*_target`` are
+    ``(machine_or_handle, n_threads)``."""
     rng = np.random.default_rng(seed)
     fresh_iter = iter(fresh)
     stream: list[tuple] = []
     for _ in range(n_queries):
         roll = rng.random()
-        if roll < 1.0 - hit_fraction:
+        if roll < search_fraction:
+            sig = search_sigs[int(rng.integers(len(search_sigs)))]
+            stream.append((search_target[0], sig, search_target[1]))
+        elif roll < search_fraction + (1.0 - hit_fraction - search_fraction):
             sig = next(fresh_iter, None)
             if sig is None:  # fresh supply exhausted -> serve a hit instead
                 sig = pool[int(rng.integers(len(pool)))]
+            stream.append((sweep_target[0], sig, sweep_target[1]))
         else:
             sig = pool[int(rng.integers(len(pool)))]
-        stream.append((sweep_target[0], sig, sweep_target[1]))
+            stream.append((sweep_target[0], sig, sweep_target[1]))
     return stream
+
+
+def search_machine():
+    """The 16-node SNC machine of the search-tier target: 8 sockets of 8
+    cores, 2 NUMA nodes a socket, 25.6 GB/s QPI links."""
+    from repro_torch.core.numa import make_machine
+
+    return make_machine(
+        "snc2-8s", sockets=8, cores_per_socket=8, nodes_per_socket=2,
+        qpi_bw=25.6e9,
+    )
+
+
+def serve_stream(
+    service: AdvisorService,
+    n_queries: int,
+    *,
+    pool: int = 32,
+    hit_fraction: float = 0.8,
+    search_fraction: float = 0.02,
+    workers: int = 4,
+) -> dict:
+    """Warm ``service`` (the sweep group's table and first batch, the hot
+    set, and the search machine's two signatures when
+    ``search_fraction > 0``), reset its metrics, drive the mixed stream
+    and return the metrics snapshot with the device, qps and wall time."""
+    from repro_torch.core.numa import E7_4830_V3
+
+    sweep_fp = service.register(E7_4830_V3)
+    search_fp = service.register(search_machine())
+    hot = signature_pool(pool, seed=0)
+    fresh = signature_pool(n_queries, seed=7)
+    search_sigs = signature_pool(2, seed=13)
+
+    service.warmup(sweep_fp, 24)
+    for sig in hot:  # pre-answer the hot set
+        service.query(sweep_fp, sig, 24)
+    if search_fraction > 0:
+        for sig in search_sigs:
+            service.query(search_fp, sig, 32)
+    service.metrics.reset(keep_traces=True)
+
+    stream = mixed_stream(
+        hot, fresh, n_queries, sweep_target=(sweep_fp, 24),
+        search_sigs=search_sigs, search_target=(search_fp, 32),
+        hit_fraction=hit_fraction, search_fraction=search_fraction,
+    )
+    results, wall = drive_threads(service, stream, n_workers=workers)
+    if any(r is None for r in results):
+        raise RuntimeError("a query went unanswered")
+    snap = service.metrics.snapshot()
+    snap["device"] = str(service.device)
+    snap["search_queries"] = sum(m == search_fp for m, _, _ in stream)
+    snap["qps"] = round(len(stream) / wall, 1)
+    snap["wall_s"] = round(wall, 3)
+    return snap
 
 
 def main() -> None:
@@ -124,6 +190,8 @@ def main() -> None:
     parser.add_argument("--pool", type=int, default=32,
                         help="distinct signatures in the hot (cached) set")
     parser.add_argument("--hit-fraction", type=float, default=0.8)
+    parser.add_argument("--search-fraction", type=float, default=0.02,
+                        help="share of queries on the 16-node search-tier machine")
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--max-wait-ms", type=float, default=2.0)
@@ -131,35 +199,16 @@ def main() -> None:
                         help="write the metrics snapshot to this path")
     args = parser.parse_args()
 
-    from repro_torch.core.numa import E7_4830_V3
-
     service = AdvisorService(
         device=args.device, max_batch=args.max_batch,
         max_wait_s=args.max_wait_ms / 1e3,
     )
     try:
-        sweep_fp = service.register(E7_4830_V3)
-        pool = signature_pool(args.pool, seed=0)
-        fresh = signature_pool(args.queries, seed=7)
-
-        print("warming up (placement table + first batch)...")
-        service.warmup(sweep_fp, 24)
-        for sig in pool:  # pre-answer the hot set
-            service.query(sweep_fp, sig, 24)
-        service.metrics.reset(keep_traces=True)
-
-        stream = mixed_stream(
-            pool, fresh, args.queries, sweep_target=(sweep_fp, 24),
-            hit_fraction=args.hit_fraction,
+        print("warming up (placement table, first batch, search answers)...")
+        snap = serve_stream(
+            service, args.queries, pool=args.pool, hit_fraction=args.hit_fraction,
+            search_fraction=args.search_fraction, workers=args.workers,
         )
-        results, wall = drive_threads(service, stream, n_workers=args.workers)
-        if any(r is None for r in results):
-            raise RuntimeError("a query went unanswered")
-
-        snap = service.metrics.snapshot()
-        snap["device"] = str(service.device)
-        snap["qps"] = round(len(stream) / wall, 1)
-        snap["wall_s"] = round(wall, 3)
         print(json.dumps(snap, indent=2))
         if args.json and args.json != "-":
             with open(args.json, "w") as fh:

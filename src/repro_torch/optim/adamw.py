@@ -1,0 +1,145 @@
+"""AdamW over nested dicts of tensors, with schedules and global-norm
+clipping (port of ``repro.optim.adamw``).
+
+Plain functions over parameter trees (dicts, lists or tuples of tensors),
+so the placement search and a training step share them.  The arithmetic
+follows the reference's float32 order: the bias corrections
+``1 - b ** step`` in float32, then ``(m / c1) / (sqrt(v / c2) + eps)``,
+decay added to the step and ``p - lr * step`` last.  ``torch.optim.AdamW``
+decays ``p`` before its step, which rounds differently, so it is not used.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+_F32 = torch.float32
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # int32 scalar
+    m: Any  # tree like params
+    v: Any  # tree like params
+
+
+def _map(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *rest_leaves)`` over a nested dict / list / tuple;
+    ``path`` holds the keys (dict keys, ``[i]`` for sequence items).  Dict
+    keys are visited sorted, as JAX flattens a tree, so reductions over
+    the leaves sum in the reference's order."""
+    if isinstance(tree, dict):
+        return {
+            k: _map(fn, tree[k], *(r[k] for r in rest), path=path + (k,))
+            for k in sorted(tree)
+        }
+    if isinstance(tree, (list, tuple)):
+        out = [
+            _map(fn, t, *(r[i] for r in rest), path=path + (f"[{i}]",))
+            for i, t in enumerate(tree)
+        ]
+        return type(tree)(out) if isinstance(tree, list) else tuple(out)
+    return fn(path, tree, *rest)
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    _map(lambda _, x: out.append(x), tree)
+    return out
+
+
+def init(params: Any, moment_dtype: str = "float32") -> AdamWState:
+    """Zero moments shaped like ``params`` (floating leaves in
+    ``moment_dtype``, others in their own dtype) and step 0."""
+    dt = getattr(torch, moment_dtype)
+
+    def zeros(_, p):
+        return torch.zeros(p.shape, dtype=dt if p.is_floating_point() else p.dtype,
+                           device=p.device)
+
+    first = _leaves(params)
+    dev = first[0].device if first else None
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        m=_map(zeros, params),
+        v=_map(zeros, params),
+    )
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """The L2 norm over every leaf, in float32."""
+    leaves = [torch.sum(torch.square(x.to(_F32))) for x in _leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+    """Scale ``grads`` so their global norm is at most ``max_norm``;
+    returns the scaled tree and the norm before scaling."""
+    norm = global_norm(grads)
+    one = torch.ones((), dtype=_F32, device=norm.device)
+    scale = torch.minimum(one, max_norm / torch.maximum(norm, torch.full_like(norm, 1e-9)))
+    return _map(lambda _, g: (g.to(_F32) * scale).to(g.dtype), grads), norm
+
+
+def _decay_mask(path) -> bool:
+    """Weight decay applies to matrices only (not norms/biases/1-D),
+    keyed on the leaf's name."""
+    name = str(path[-1])
+    return "norm" not in name and name not in ("dt_bias", "conv_b", "D", "A_log")
+
+
+def update(
+    grads: Any,
+    state: AdamWState,
+    params: Any,
+    *,
+    lr,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> tuple[Any, AdamWState]:
+    """One AdamW step; returns the new parameters and state."""
+    step = state.step + 1
+    s32 = step.to(_F32)
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32, device=s32.device), s32)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32, device=s32.device), s32)
+
+    def upd(path, p, g, m, v):
+        if not p.is_floating_point():
+            return p, m, v
+        g32 = g.to(_F32)
+        m32 = m.to(_F32) * b1 + g32 * (1 - b1)
+        v32 = v.to(_F32) * b2 + g32 * g32 * (1 - b2)
+        u = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+        if _decay_mask(path):
+            u = u + weight_decay * p.to(_F32)
+        new_p = (p.to(_F32) - lr * u).to(p.dtype)
+        return new_p, m32.to(m.dtype), v32.to(v.dtype)
+
+    done: dict[tuple, tuple] = {}
+    _map(lambda path, *leaves: done.setdefault(path, upd(path, *leaves)),
+         params, grads, state.m, state.v)
+    new_params, new_m, new_v = (
+        _map(lambda path, _: done[path][i], params) for i in range(3)
+    )
+    return new_params, AdamWState(step=step, m=new_m, v=new_v)
+
+
+def cosine_schedule(
+    base_lr: float, warmup_steps: int, total_steps: int, min_ratio: float = 0.1
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Linear warm-up to ``base_lr``, then a cosine decay to
+    ``min_ratio * base_lr`` at ``total_steps``."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        s = torch.as_tensor(step).to(_F32)
+        warm = s / max(warmup_steps, 1)
+        prog = torch.clamp(
+            (s - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0, 1.0
+        )
+        cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return base_lr * torch.where(s < warmup_steps, warm, cos)
+
+    return lr

@@ -1,8 +1,8 @@
-"""Placement advisor as a service (port of ``repro.serve``): a two-tier
-fast path — LRU answer cache, then micro-batched grouped sweeps on the
-service's device — behind sync and async front ends, instrumented per
-tier.  The search and schedule tiers, hot-swap, the deadline ladder and
-fault injection are not ported yet."""
+"""Placement advisor as a service (port of ``repro.serve``): LRU answer
+cache, micro-batched grouped sweeps, warm-started branch and bound for
+machines too large to sweep, and phased schedules — on the service's
+device, behind sync and async front ends, instrumented per tier.
+Hot-swap, the deadline ladder and fault injection are not ported yet."""
 
 from repro_torch.serve.cache import LRUCache
 from repro_torch.serve.metrics import TIERS, ServiceMetrics
@@ -10,6 +10,7 @@ from repro_torch.serve.service import (
     Advice,
     AdvisorService,
     QuerySignature,
+    ScheduleAdvice,
     ServiceClosedError,
 )
 
@@ -18,6 +19,7 @@ __all__ = [
     "AdvisorService",
     "LRUCache",
     "QuerySignature",
+    "ScheduleAdvice",
     "ServiceClosedError",
     "ServiceMetrics",
     "TIERS",

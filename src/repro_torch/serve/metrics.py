@@ -2,10 +2,14 @@
 (port of ``repro.serve.metrics``).
 
 Every query the :class:`~repro_torch.serve.service.AdvisorService`
-answers is accounted here, per tier.  The port serves two tiers so far:
+answers is accounted here, per tier:
 
 * ``cache`` — tier-1 LRU answer-cache hits;
-* ``batch`` — tier-2 micro-batched ``simulate_grouped_batch`` misses.
+* ``batch`` — tier-2 micro-batched ``simulate_grouped_batch`` misses;
+* ``search`` — tier-3 warm-started branch and bound on machines past
+  ``sweep_limit``;
+* ``schedule`` — phased queries answered by the migration-aware
+  scheduler.
 
 Latencies land in preallocated per-tier numpy ring buffers, and
 percentiles are computed lazily in :meth:`ServiceMetrics.snapshot`.
@@ -26,7 +30,7 @@ from collections import Counter
 
 import numpy as np
 
-TIERS = ("cache", "batch")
+TIERS = ("cache", "batch", "search", "schedule")
 
 
 class _LatencyRing:

@@ -1,5 +1,6 @@
 """Placement advisor as a service: the micro-batched online query engine
-(port of ``repro.serve.service``, cache and batch tiers).
+(port of ``repro.serve.service``: the cache, batch, search and schedule
+tiers).
 
 Callers submit ``(workload signature, machine handle, thread budget)``
 and get back a placement plus its predicted bandwidth and work rate:
@@ -15,14 +16,26 @@ and get back a placement plus its predicted bandwidth and work rate:
    on the service's device.  Query rows are always padded to exactly
    ``max_batch``, so each group runs one shape, and a query's row never
    interacts with its batch-mates: answers equal serial evaluation.
+3. **search** — a ``(machine, budget)`` whose composition count exceeds
+   ``sweep_limit`` is answered by :func:`~repro_torch.core.numa.search.
+   branch_and_bound`, warm-started from the advisor's signature-only
+   ranking (``advisor_seeds``), on the ``advisor-search`` thread pool so
+   searches never stall micro-batching.  A failed attempt retries after a
+   backoff with a halved node budget.  The winner is scored through the
+   batch tier's evaluator, so objective and bandwidth do not depend on
+   the tier.
 
-Not ported yet (they need the search, scheduling, calibration and
-advisor modules of later slices): the branch-and-bound search tier, the
-phased schedule tier, spec hot-swap/rollback, the deadline degradation
-ladder and fault injection.  Every entry point of a missing tier (a
-budget past ``sweep_limit``, ``deadline_s``, ``query_schedule``,
-``swap_machine``...) raises ``NotImplementedError`` naming it; nothing
-answers it through another tier.
+Phased queries (:meth:`AdvisorService.query_schedule`) take the
+**schedule** tier: :func:`~repro_torch.core.numa.temporal.
+optimize_schedule` on the search pool, cached and deduplicated like
+one-shot queries.
+
+Not ported yet (they need the calibration slice): spec epochs with
+hot-swap/rollback, the deadline degradation ladder and fault injection.
+Their entry points (``deadline_s``, ``swap_machine``,
+``rollback_machine``) raise ``NotImplementedError`` naming the missing
+tier; nothing answers them through another tier.  Without epochs, cache
+keys carry none.
 """
 
 from __future__ import annotations
@@ -30,7 +43,7 @@ from __future__ import annotations
 import math
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -40,10 +53,16 @@ import torch
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.numa.evaluate import placement_array
 from repro_torch.core.numa.machine import MachineSpec
+from repro_torch.core.numa.search import branch_and_bound
 from repro_torch.core.numa.simulator import (
     pad_rows,
     simulate_grouped_batch,
     support_patterns,
+)
+from repro_torch.core.numa.temporal import (
+    MigrationModel,
+    optimize_schedule,
+    phased_workload,
 )
 from repro_torch.core.numa.workload import Workload, mixed_workload
 from repro_torch.serve.cache import LRUCache
@@ -107,8 +126,23 @@ class Advice:
     placement: tuple[int, ...]  # threads per NUMA node
     predicted_bandwidth: float  # total bytes/s moved at this placement
     objective: float  # work rate (instructions/s), the quantity maximized
-    tier: str  # "batch"
-    optimal: bool  # exhaustive sweep
+    tier: str  # "batch" | "search"
+    optimal: bool  # exhaustive sweep, or B&B certificate within its gap
+
+
+@dataclass(frozen=True)
+class ScheduleAdvice:
+    """One answered *phased* query: a placement (and page placement) per
+    phase plus the scheduler's receipts.  ``gain_pct`` is the improvement
+    over holding the best static placement for the whole horizon."""
+
+    placements: tuple[tuple[int, ...], ...]  # per-phase threads per node
+    bank_assignments: tuple  # per-phase bank maps (None = node-local)
+    total_work: float  # instructions over the horizon
+    static_work: float  # best static placement's instructions
+    gain_pct: float
+    transition_times: tuple[float, ...]  # boundary stalls (seconds)
+    tier: str = "schedule"
 
 
 class _PlacementTable(NamedTuple):
@@ -170,8 +204,8 @@ class AdvisorService:
     :meth:`submit` concurrently.  Answers equal serial evaluation because
     batch rows never interact and padding always lands on the same shape.
     ``sweep_limit`` is the largest composition count the batch tier
-    sweeps; larger ``(machine, budget)`` groups belong to the search tier,
-    which is not ported yet.
+    sweeps; larger ``(machine, budget)`` groups go to warm-started branch
+    and bound (``search_*``, ``advisor_*``) on ``search_workers`` threads.
     """
 
     def __init__(
@@ -183,6 +217,14 @@ class AdvisorService:
         max_batch: int = 8,
         max_wait_s: float = 0.002,
         sweep_limit: int = 20_000,
+        search_gap: float = 0.05,
+        search_max_nodes: int = 50_000,
+        search_retries: int = 2,
+        search_backoff_s: float = 0.01,
+        search_min_nodes: int = 500,
+        advisor_seeds: int = 8,
+        advisor_max_placements: int = 2048,
+        search_workers: int = 2,
         metrics: ServiceMetrics | None = None,
     ):
         if max_batch < 1:
@@ -191,6 +233,13 @@ class AdvisorService:
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_s)
         self.sweep_limit = int(sweep_limit)
+        self.search_gap = float(search_gap)
+        self.search_max_nodes = int(search_max_nodes)
+        self.search_retries = int(search_retries)
+        self.search_backoff_s = float(search_backoff_s)
+        self.search_min_nodes = int(search_min_nodes)
+        self.advisor_seeds = int(advisor_seeds)
+        self.advisor_max_placements = int(advisor_max_placements)
         self.metrics = metrics if metrics is not None else ServiceMetrics()
 
         self._machines: dict[str, MachineSpec] = {}
@@ -204,6 +253,10 @@ class AdvisorService:
         self._closed = False
         self._close_started = False
         self._close_done = threading.Event()
+        self._search_pool = ThreadPoolExecutor(
+            max_workers=max(1, int(search_workers)),
+            thread_name_prefix="advisor-search",
+        )
         self._batcher = threading.Thread(
             target=self._batcher_main, name="advisor-batcher", daemon=True
         )
@@ -267,12 +320,6 @@ class AdvisorService:
         if self._closed:
             raise ServiceClosedError("AdvisorService is closed")
         spec, handle = self._resolve(machine)
-        if self.uses_search(spec, n_threads):
-            raise _not_ported(
-                "search tier",
-                f"branch and bound: {spec.name} at {n_threads} threads exceeds "
-                f"sweep_limit={self.sweep_limit}",
-            )
         sig = signature.canonical()
         key = (handle, int(n_threads), sig)
         hit = self._answers.get(key)
@@ -292,13 +339,18 @@ class AdvisorService:
             if future is None:
                 future = Future()
                 self._inflight[key] = future
-                group = (handle, int(n_threads))
-                pg = self._pending.get(group)
-                if pg is None:
-                    pg = _PendingGroup(spec, [])
-                    self._pending[group] = pg
-                pg.items.append(_Pending(key, sig, future, time.perf_counter()))
-                self._cond.notify_all()
+                if self.uses_search(spec, n_threads):
+                    self._search_pool.submit(
+                        self._run_search, spec, handle, int(n_threads), sig, key, future
+                    )
+                else:
+                    group = (handle, int(n_threads))
+                    pg = self._pending.get(group)
+                    if pg is None:
+                        pg = _PendingGroup(spec, [])
+                        self._pending[group] = pg
+                    pg.items.append(_Pending(key, sig, future, time.perf_counter()))
+                    self._cond.notify_all()
 
         def _record(f, t0=t0):
             if f.cancelled() or f.exception() is not None:
@@ -309,24 +361,112 @@ class AdvisorService:
         future.add_done_callback(_record)
         return None, future
 
-    def query_schedule(self, machine, phases, n_threads: int, **kwargs):
-        """Phased query: not ported yet; raises ``NotImplementedError``."""
-        raise _not_ported("schedule tier", "the phased scheduler")
+    # -- phased queries --------------------------------------------------------
 
-    def submit_schedule(self, machine, phases, n_threads: int, **kwargs):
-        """Async phased query: not ported yet; raises ``NotImplementedError``."""
-        raise _not_ported("schedule tier", "the phased scheduler")
+    @staticmethod
+    def _canonical_phases(phases) -> tuple:
+        """``(signature, duration)`` pairs with rounded signatures and
+        durations, so float-noise variants of one schedule share a cache
+        line."""
+        canon = tuple((sig.canonical(), round(float(dur), 6)) for sig, dur in phases)
+        if not canon:
+            raise ValueError("phased query needs at least one phase")
+        return canon
+
+    def query_schedule(self, machine, phases, n_threads: int, *,
+                       model: MigrationModel | None = None,
+                       timeout: float | None = None) -> ScheduleAdvice:
+        """Synchronous phased query: ``phases`` is a sequence of
+        ``(QuerySignature, duration_s)`` pairs.  Answers with one placement
+        (and bank assignment) per phase from the migration-aware
+        scheduler, computed on the search pool; cached and deduplicated
+        like one-shot queries."""
+        advice, future = self._dispatch_schedule(machine, phases, n_threads, model)
+        if advice is not None:
+            return advice
+        return future.result(timeout)
+
+    def submit_schedule(self, machine, phases, n_threads: int, *,
+                        model: MigrationModel | None = None) -> Future:
+        """Async twin of :meth:`query_schedule`: a Future resolving to the
+        :class:`ScheduleAdvice`."""
+        advice, future = self._dispatch_schedule(machine, phases, n_threads, model)
+        if advice is not None:
+            future = Future()
+            future.set_result(advice)
+        return future
+
+    def _dispatch_schedule(self, machine, phases, n_threads, model):
+        t0 = time.perf_counter()
+        if self._closed:
+            raise ServiceClosedError("AdvisorService is closed")
+        spec, handle = self._resolve(machine)
+        model = model if model is not None else MigrationModel()
+        canon = self._canonical_phases(phases)
+        key = (handle, int(n_threads), "schedule", canon, model)
+        hit = self._answers.get(key)
+        if hit is not None:
+            self.metrics.record_query("cache", time.perf_counter() - t0)
+            return hit, None
+        with self._cond:
+            if self._closed:
+                raise ServiceClosedError("AdvisorService is closed")
+            hit = self._answers.get(key)
+            if hit is not None:
+                self.metrics.record_query("cache", time.perf_counter() - t0)
+                return hit, None
+            future = self._inflight.get(key)
+            if future is None:
+                future = Future()
+                self._inflight[key] = future
+                self._search_pool.submit(
+                    self._run_schedule, spec, int(n_threads), canon, model, key, future
+                )
+
+        def _record(f, t0=t0):
+            if f.cancelled() or f.exception() is not None:
+                return
+            self.metrics.record_query(f.result().tier, time.perf_counter() - t0)
+
+        future.add_done_callback(_record)
+        return None, future
+
+    def _run_schedule(self, machine: MachineSpec, n_threads: int, canon: tuple,
+                      model: MigrationModel, key: tuple, future: Future) -> None:
+        try:
+            pw = phased_workload(
+                "serve-schedule",
+                [
+                    (sig.workload(n_threads, name=f"phase{i}", device=self.device), dur)
+                    for i, (sig, dur) in enumerate(canon)
+                ],
+            )
+            result = optimize_schedule(machine, pw, model=model, sweep_limit=self.sweep_limit)
+            advice = ScheduleAdvice(
+                placements=result.schedule.placements,
+                bank_assignments=result.schedule.bank_assignments,
+                total_work=result.schedule.total_work,
+                static_work=result.static.total_work,
+                gain_pct=result.gain_pct,
+                transition_times=result.schedule.transition_times,
+            )
+            self._finish(key, future, advice)
+        except BaseException as exc:
+            self._fail([(key, future)], exc)
 
     # -- tier selection & placement tables ------------------------------------
 
     def uses_search(self, machine: MachineSpec, n_threads: int) -> bool:
         """True when the full composition space of ``n_threads`` over the
-        machine's nodes is too large to sweep."""
+        machine's nodes is too large to sweep (the search tier)."""
         s = machine.n_nodes
         return math.comb(int(n_threads) + s - 1, s - 1) > self.sweep_limit
 
     def _build_table(self, machine: MachineSpec, n_threads: int) -> _PlacementTable:
-        padded = pad_rows(placement_array(machine, n_threads))
+        return self._padded_table(placement_array(machine, n_threads))
+
+    def _padded_table(self, placements: np.ndarray) -> _PlacementTable:
+        padded = pad_rows(placements)
         support, slab_id = support_patterns(padded)
         return _PlacementTable(
             placements=torch.as_tensor(padded, device=self.device),
@@ -411,7 +551,7 @@ class AdvisorService:
             column([s.static_socket for s in sigs], np.int32),
         )
 
-    def _finish(self, key: tuple, future: Future, advice: Advice) -> None:
+    def _finish(self, key: tuple, future: Future, advice) -> None:
         # answer cache first, in-flight retirement second: every moment a
         # key is absent from the in-flight map it is present in the cache
         self._answers.put(key, advice)
@@ -466,12 +606,58 @@ class AdvisorService:
             int(table.support.shape[0]),
         )
 
+    # -- search tier -----------------------------------------------------------
+
+    def _run_search(self, machine: MachineSpec, handle: str, n_threads: int,
+                    sig: QuerySignature, key: tuple, future: Future) -> None:
+        wl = sig.workload(n_threads, device=self.device)
+        max_nodes = self.search_max_nodes
+        result = None
+        for attempt in range(self.search_retries + 1):
+            try:
+                result = branch_and_bound(
+                    machine,
+                    wl,
+                    gap=self.search_gap,
+                    max_nodes=max_nodes,
+                    advisor_seeds=self.advisor_seeds,
+                    advisor_max_placements=self.advisor_max_placements,
+                )
+                break
+            except BaseException as exc:
+                if attempt >= self.search_retries:
+                    self._fail([(key, future)], exc)
+                    return
+                # back off, then retry on a cut node budget: a transient
+                # stall is ridden out, a slow search lands on a cheaper
+                # certified incumbent
+                time.sleep(self.search_backoff_s * (2 ** attempt))
+                max_nodes = max(self.search_min_nodes, max_nodes // 2)
+        try:
+            # score the winner through the batch tier's evaluator, so
+            # objective and bandwidth do not depend on the tier
+            table = self._padded_table(np.asarray(result.placement, np.int32)[None, :])
+            workloads = self._stacked_workloads([sig], n_threads)
+            self.metrics.register_trace(self._trace_key(handle, n_threads, table))
+            _, obj, bandwidth = _advise_batch(machine, workloads, table, (0,))
+            advice = Advice(
+                placement=tuple(int(v) for v in result.placement),
+                predicted_bandwidth=float(bandwidth[0]),
+                objective=float(obj[0]),
+                tier="search",
+                optimal=result.optimal,
+            )
+            self._finish(key, future, advice)
+        except BaseException as exc:
+            self._fail([(key, future)], exc)
+
     # -- warmup & lifecycle ------------------------------------------------------
 
     def warmup(self, machine, n_threads: int,
                signature: QuerySignature | None = None) -> Advice:
         """Run a ``(machine, budget)`` group's single steady-state shape
-        (building its placement table) by answering one query."""
+        (building its placement table, or on a search-tier machine
+        answering one search) by answering one query."""
         sig = signature if signature is not None else QuerySignature(
             (0.25, 0.25, 0.25), (0.25, 0.25, 0.25)
         )
@@ -481,8 +667,10 @@ class AdvisorService:
         """Stop the service: drain-then-fail, idempotent, never hangs.
 
         The batcher flushes every already-pending micro-batch (their
-        futures resolve with exact answers); any future still unresolved
-        afterwards fails with :class:`ServiceClosedError`.  Concurrent and
+        futures resolve with exact answers), the search pool stops taking
+        work, and any future still unresolved afterwards (queued searches
+        that never ran, stragglers past ``timeout``) fails with
+        :class:`ServiceClosedError`.  Concurrent and
         repeated calls are safe: the first runs the shutdown, the rest
         wait for it.  Every entry point raises ``ServiceClosedError`` once
         close has begun."""
@@ -496,6 +684,7 @@ class AdvisorService:
             return
         try:
             self._batcher.join(timeout)
+            self._search_pool.shutdown(wait=False, cancel_futures=True)
             with self._cond:
                 pending = [it for g in self._pending.values() for it in g.items]
                 self._pending.clear()

@@ -1,8 +1,8 @@
 """The port on an NVIDIA GPU: the CUDA selective-scan and flash-attention
-kernels against their plain versions, and the sweep, the service, the
-reduced LMs' prefill (attention, mamba and MoE layers), the mamba decode
-step and the MoE dispatch on the card against the same port code on the
-CPU.  Every test here is marked ``gpu`` and skips
+kernels against their plain versions, and the sweep, the placement
+search, the scheduler, the service's tiers, the reduced LMs' prefill
+(attention, mamba and MoE layers), the mamba decode step and the MoE
+dispatch on the card against the same port code on the CPU.  Every test here is marked ``gpu`` and skips
 without a card; this file imports neither JAX nor the JAX package, so it
 runs where only torch is installed:
 
@@ -405,3 +405,95 @@ def test_service_on_the_card_matches_cpu(cuda):
         cpu = [svc.query(E7_4830_V3, s, 12) for s in sigs]
     for g, c in zip(card, cpu):
         assert g.objective == pytest.approx(c.objective, rel=1e-4)
+
+
+def _exact_on_cpu(machine, name, n, placement):
+    from repro_torch.core.numa import exact_objectives
+    from repro_torch.core.numa.benchmarks import benchmark_workload
+
+    wl = benchmark_workload(name, n, device="cpu")
+    return float(exact_objectives(machine, wl, np.asarray([placement]))[0])
+
+
+@pytest.mark.parametrize("preset,n", [("E7_4830_V3", 24), ("E5_2699_V3_SNC2", 16)])
+def test_search_on_the_card_matches_cpu(cuda, preset, n):
+    """Exact objectives, the relaxed rate, gradient ascent and branch and
+    bound on the card against the port on the CPU; a different placement
+    must score the CPU's objective (ties on symmetric machines)."""
+    from repro_torch.core.numa import (
+        branch_and_bound,
+        exact_objectives,
+        optimize_placement,
+        relaxed_work_rate,
+    )
+    from repro_torch.core.numa import machine as machines
+    from repro_torch.core.numa.benchmarks import benchmark_workload
+    from repro_torch.core.numa.evaluate import placement_array
+
+    m = getattr(machines, preset)
+    wl_card = benchmark_workload("CG", n, device=cuda)
+    wl_cpu = benchmark_workload("CG", n, device="cpu")
+    table = placement_array(m, n, max_placements=64)
+    np.testing.assert_allclose(exact_objectives(m, wl_card, table),
+                               exact_objectives(m, wl_cpu, table), rtol=1e-5)
+    p = np.random.default_rng(0).dirichlet(np.ones(m.n_nodes)) * n
+    card_rate = relaxed_work_rate(m, wl_card, torch.tensor(p, dtype=torch.float32))
+    cpu_rate = relaxed_work_rate(m, wl_cpu, torch.tensor(p, dtype=torch.float32))
+    assert card_rate.device.type == "cuda"
+    assert float(card_rate) == pytest.approx(float(cpu_rate), rel=1e-4)
+    for search in (optimize_placement, branch_and_bound):
+        card, cpu = search(m, wl_card), search(m, wl_cpu)
+        assert card.objective == pytest.approx(cpu.objective, rel=1e-5)
+        assert (card.optimal, card.nodes_expanded) == (cpu.optimal, cpu.nodes_expanded)
+        if card.placement != cpu.placement:
+            assert _exact_on_cpu(m, "CG", n, card.placement) == pytest.approx(
+                cpu.objective, rel=1e-5)
+
+
+def test_schedule_on_the_card_matches_cpu(cuda):
+    from repro_torch.core.numa import (
+        E7_4830_V3,
+        MigrationModel,
+        mixed_workload,
+        optimize_schedule,
+        phased_workload,
+    )
+
+    def phases(device):
+        return phased_workload("tri", [
+            (mixed_workload("s0", 24, read_mix=(0.7, 0.1, 0.0), read_bpi=4.0,
+                            static_socket=0, device=device), 4.0),
+            (mixed_workload("local", 24, read_mix=(0.1, 0.6, 0.1), read_bpi=4.0,
+                            device=device), 2.0),
+        ])
+
+    # the candidate pools may pick other placements among float32 ties on
+    # this symmetric machine, so the schedules are held by their work
+    model = MigrationModel(thread_move_bytes=1e6, page_move_bytes=1e6)
+    card = optimize_schedule(E7_4830_V3, phases(cuda), model=model)
+    cpu = optimize_schedule(E7_4830_V3, phases("cpu"), model=model)
+    assert abs(card.gain_pct - cpu.gain_pct) <= 0.005
+    assert card.schedule.total_work == pytest.approx(cpu.schedule.total_work, rel=1e-4)
+    assert card.static.total_work == pytest.approx(cpu.static.total_work, rel=1e-4)
+
+
+def test_search_and_schedule_tiers_on_the_card(cuda):
+    from repro_torch.core.numa import E5_2630_V3
+    from repro_torch.launch.advisor_serve import search_machine, signature_pool
+    from repro_torch.serve import AdvisorService, QuerySignature
+
+    m16 = search_machine()
+    sig = signature_pool(1, seed=77)[0]
+    phases = [(QuerySignature((0.7, 0.1, 0.0), (0.0, 0.0, 0.0), read_bpi=5.0,
+                              static_socket=s), 5.0) for s in (0, 1)]
+    answers = {}
+    for device in ("cuda", "cpu"):
+        with AdvisorService(device=device) as svc:
+            answers[device] = (svc.query(m16, sig, 32, timeout=600),
+                               svc.query_schedule(E5_2630_V3, phases, 8, timeout=600),
+                               svc.metrics.snapshot()["tier_counts"])
+    (search, sched, counts), (search_cpu, sched_cpu, _) = answers["cuda"], answers["cpu"]
+    assert search.tier == "search" and sched.tier == "schedule"
+    assert counts["search"] == 1 and counts["schedule"] == 1
+    assert search.objective == pytest.approx(search_cpu.objective, rel=1e-4)
+    assert abs(sched.gain_pct - sched_cpu.gain_pct) <= 0.005

@@ -194,3 +194,67 @@ def test_noisy_sweep_from_generator_is_seeded():
 
     assert torch.equal(run(0), run(0))
     assert not torch.equal(run(0), run(1))
+
+
+def _stability_noise(names, s_a, s_b, seed=0):
+    """The profiling draws of the reference's ``evaluate_stability``:
+    benchmark ``i`` fits on machine A with ``split(fold_in(key, i))[0]``
+    and on machine B with ``[1]``."""
+    from _torch_parity import jax_profile_noise
+
+    key = jax.random.PRNGKey(seed)
+    runs = {"a": [], "b": []}
+    for i in range(len(names)):
+        ka, kb = jax.random.split(jax.random.fold_in(key, i))
+        runs["a"].append(jax_profile_noise(ka, s_a))
+        runs["b"].append(jax_profile_noise(kb, s_b))
+
+    def stack(pairs):
+        return CounterNoise(*(torch.stack([torch.stack([sym[f], asym[f]]) for sym, asym in pairs])
+                              for f in range(3)))
+
+    return stack(runs["a"]), stack(runs["b"])
+
+
+@pytest.mark.parametrize("noise_std", [0.0, 0.03])
+def test_stability_matches_reference(noise_std):
+    """Signature moves between the paper's two machines (Figures 13-15):
+    noise-free, and with the reference's profiling draws handed in.  The
+    changes are percentages of reallocated bandwidth: rel 1e-5 with a
+    1e-4 pp floor for near-zero moves."""
+    ma, mb = ref.E5_2630_V3, ref.E5_2699_V3
+    want = ref_eval.evaluate_stability(ma, mb, noise_std=noise_std)
+    noise = (_stability_noise(want.names, ma.n_nodes, mb.n_nodes)
+             if noise_std else None)
+    got = port_eval.evaluate_stability(port.E5_2630_V3, port.E5_2699_V3,
+                                       noise_std=noise_std, noise=noise, device=CPU)
+    assert got.names == want.names
+    for field in ("read_change", "write_change", "combined_change"):
+        g, w = getattr(got, field), getattr(want, field)
+        np.testing.assert_allclose([g[n] for n in want.names], [w[n] for n in want.names],
+                                   rtol=1e-5, atol=1e-4, err_msg=field)
+    assert got.median_combined_pct == pytest.approx(want.median_combined_pct, rel=1e-5, abs=1e-4)
+    assert got.mean_combined_pct == pytest.approx(want.mean_combined_pct, rel=1e-5, abs=1e-4)
+
+
+def test_stability_noise_from_generator_is_seeded():
+    def run(seed):
+        return port_eval.evaluate_stability(
+            port.E5_2630_V3, port.E5_2699_V3, noise_std=0.03, seed=seed,
+            include_violators=False, device=CPU,
+        ).combined_change
+
+    assert run(0) == run(0) and run(0) != run(1)
+
+
+def test_suite_matches_reference():
+    from repro.core.numa.benchmarks import suite as ref_suite
+    from repro_torch.core.numa.benchmarks import suite
+
+    for include in (True, False):
+        got = list(suite(12, include, device=CPU))
+        want = list(ref_suite(12, include))
+        assert [w.name for w in got] == [w.name for w in want]
+        for g, w in zip(got, want):
+            for f, a in zip(g._fields[1:], g[1:]):
+                np.testing.assert_array_equal(to_np(a), np.asarray(getattr(w, f)), err_msg=f)

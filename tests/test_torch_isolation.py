@@ -38,6 +38,12 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.flash_attention.kernel" in modules
     assert "repro_torch.launch.serve" in modules
     assert {"repro_torch.models.mamba", "repro_torch.models.moe"} <= set(modules)
+    assert {
+        "repro_torch.optim.adamw",
+        "repro_torch.core.numa.search",
+        "repro_torch.core.numa.temporal",
+        "repro_torch.core.meshsig.advisor",
+    } <= set(modules)
     script = textwrap.dedent(
         f"""
         import importlib, importlib.abc, sys

@@ -1,5 +1,5 @@
-"""The port's advisor service (cache and batch tiers) against the JAX
-``AdvisorService``, and its serving contracts on the CPU.
+"""The port's advisor service (cache, batch, search and schedule tiers)
+against the JAX ``AdvisorService``, and its serving contracts on the CPU.
 
 Parity: every answer's objective and predicted bandwidth within rel
 1e-5 of the reference's.  The placement is the reference's, or a tie:
@@ -70,6 +70,16 @@ def test_signature_pool_and_stream_match_reference():
         sweep_target=("m", 24), search_target=None, search_fraction=0.0,
     )
     assert [(m, tuple(s), n) for m, s, n in got] == [(m, tuple(s), n) for m, s, n in want]
+    search = signature_pool(2, seed=13)
+    got = mixed_stream(pool, fresh, 200, sweep_target=("m", 24), search_sigs=search,
+                       search_target=("m16", 32), search_fraction=0.02)
+    want = ref_mixed_stream(
+        ref_signature_pool(8, seed=0), ref_signature_pool(20, seed=7),
+        ref_signature_pool(2, seed=13), 200, sweep_target=("m", 24),
+        search_target=("m16", 32), search_fraction=0.02,
+    )
+    assert [(m, tuple(s), n) for m, s, n in got] == [(m, tuple(s), n) for m, s, n in want]
+    assert sum(m == "m16" for m, _, _ in got) > 0
 
 
 @pytest.mark.parametrize("name,n", GROUPS)
@@ -164,24 +174,136 @@ def test_steady_state_registers_no_new_shapes(service):
     json.dumps(snap)  # JSON-ready
 
 
-def test_budget_past_sweep_limit_needs_the_search_tier():
-    with AdvisorService(device=CPU, sweep_limit=100) as svc:
+def _snc2_8s():
+    return port.make_machine(
+        "snc2-8s", sockets=8, cores_per_socket=8, nodes_per_socket=2, qpi_bw=25.6e9,
+    )
+
+
+def test_sixteen_node_machine_routes_to_search_tier():
+    m16 = _snc2_8s()
+    sig = signature_pool(1, seed=77)[0]
+    with AdvisorService(device=CPU) as svc:
+        assert svc.uses_search(m16, 32)
+        assert not svc.uses_search(port.E7_4830_V3, 24)
+        adv = svc.query(m16, sig, 32, timeout=300)
+        snap = svc.metrics.snapshot()
+        again = svc.query(m16, sig, 32)
+    p = np.asarray(adv.placement)
+    assert adv.tier == "search"
+    assert p.shape == (16,) and p.sum() == 32
+    assert (p >= 0).all() and (p <= m16.cores_per_node).all()
+    assert adv.objective > 0 and adv.predicted_bandwidth > 0
+    assert snap["tier_counts"]["search"] == 1
+    assert again is adv  # the search answer is cached
+    # the service's answer is branch and bound's, scored by the batch tier
+    direct = port.branch_and_bound(
+        m16, sig.workload(32, device=CPU), gap=0.05, max_nodes=50_000,
+        advisor_seeds=8, advisor_max_placements=2048,
+    )
+    assert adv.placement == direct.placement and adv.optimal == direct.optimal
+    assert adv.objective == pytest.approx(direct.objective, rel=1e-5)
+
+
+def test_search_tier_answers_a_small_sweep_limit_and_matches_the_sweep():
+    """With ``sweep_limit`` under the group's composition count the
+    search tier answers; at gap 0 its objective is the sweep's optimum."""
+    sig = signature_pool(1, seed=3)[0]
+    with AdvisorService(device=CPU, sweep_limit=100, search_gap=0.0) as svc:
         assert svc.uses_search(port.E7_4830_V3, 24)
-        with pytest.raises(NotImplementedError, match="search tier"):
-            svc.query(port.E7_4830_V3, signature_pool(1)[0], 24)
-        with pytest.raises(NotImplementedError, match="search tier"):
-            svc.submit(port.E7_4830_V3, signature_pool(1)[0], 24)
-        assert not svc.uses_search(port.E5_2630_V3, 8)
+        searched = svc.submit(port.E7_4830_V3, sig, 24).result(timeout=300)
+    with AdvisorService(device=CPU) as svc:
+        swept = svc.query(port.E7_4830_V3, sig, 24)
+    assert searched.tier == "search" and searched.optimal
+    assert swept.tier == "batch"
+    assert searched.objective == pytest.approx(swept.objective, rel=1e-5)
+
+
+def test_search_retries_with_a_halved_budget(monkeypatch):
+    import repro_torch.serve.service as svc_mod
+
+    real, budgets = svc_mod.branch_and_bound, []
+
+    def flaky(*args, **kwargs):
+        budgets.append(kwargs["max_nodes"])
+        if len(budgets) < 3:
+            raise RuntimeError("transient")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(svc_mod, "branch_and_bound", flaky)
+    with AdvisorService(device=CPU, sweep_limit=100, search_max_nodes=4000,
+                        search_backoff_s=0.0) as svc:
+        adv = svc.query(port.E7_4830_V3, signature_pool(1, seed=8)[0], 24, timeout=300)
+    assert adv.tier == "search"
+    assert budgets == [4000, 2000, 1000]
+
+
+def _flip_phases():
+    a = QuerySignature((0.7, 0.1, 0.0), (0.0, 0.0, 0.0), read_bpi=5.0, static_socket=0)
+    b = QuerySignature((0.7, 0.1, 0.0), (0.0, 0.0, 0.0), read_bpi=5.0, static_socket=1)
+    return [(a, 5.0), (b, 5.0)]
+
+
+def test_query_schedule_end_to_end():
+    from repro_torch.core.numa.temporal import MigrationModel
+    from repro_torch.serve import ScheduleAdvice
+
+    model = MigrationModel(thread_move_bytes=1e6, page_move_bytes=1e6)
+    with AdvisorService(device=CPU) as svc:
+        adv = svc.query_schedule(port.E5_2630_V3, _flip_phases(), 8, model=model, timeout=300)
+        snap = svc.metrics.snapshot()
+        # a second ask is a cache hit returning the same object
+        again = svc.query_schedule(port.E5_2630_V3, _flip_phases(), 8, model=model)
+        assert svc.metrics.snapshot()["tier_counts"]["cache"] >= 1
+    assert isinstance(adv, ScheduleAdvice)
+    assert adv.tier == "schedule"
+    assert len(adv.placements) == 2
+    assert all(sum(p) == 8 for p in adv.placements)
+    assert adv.gain_pct > 0.0  # the flip is worth migrating for
+    assert adv.placements[0] != adv.placements[1]
+    assert adv.total_work > adv.static_work
+    assert snap["tier_counts"]["schedule"] == 1
+    assert again is adv
+    # the reference's service answers the same schedule
+    with ref_serve.AdvisorService() as ref_svc:
+        want = ref_svc.query_schedule(
+            ref.E5_2630_V3, [(ref_serve.QuerySignature(*q), d) for q, d in _flip_phases()],
+            8, model=ref.MigrationModel(1e6, 1e6), timeout=300)
+    assert adv.placements == want.placements
+    assert adv.gain_pct == pytest.approx(want.gain_pct, abs=0.005)
+
+
+def test_submit_schedule_dedupes_inflight():
+    from repro_torch.core.numa.temporal import MigrationModel
+
+    model = MigrationModel(thread_move_bytes=1e6, page_move_bytes=1e6)
+    with AdvisorService(device=CPU) as svc:
+        futures = [svc.submit_schedule(port.E5_2630_V3, _flip_phases(), 8, model=model)
+                   for _ in range(4)]
+        answers = [f.result(timeout=300) for f in futures]
+        snap = svc.metrics.snapshot()
+    assert all(a is answers[0] for a in answers)  # computed once
+    assert snap["tier_counts"]["schedule"] + snap["tier_counts"]["cache"] >= 1
+
+
+def test_schedule_canonicalization_merges_float_noise():
+    a = QuerySignature((1 / 3, 1 / 3, 0.1), (0.2, 0.2, 0.2))
+    b = QuerySignature((0.33333333333, 0.333333333401, 0.1), (0.2, 0.2, 0.2))
+    with AdvisorService(device=CPU) as svc:
+        first = svc.query_schedule(port.E5_2630_V3, [(a, 1.0)], 8, timeout=300)
+        second = svc.query_schedule(port.E5_2630_V3, [(b, 1.0000000004)], 8)
+    assert second is first
+
+
+def test_query_schedule_rejects_empty_phases(service):
+    with pytest.raises(ValueError):
+        service.query_schedule(port.E5_2630_V3, [], 8)
 
 
 def test_tiers_not_ported_raise_naming_the_tier(service):
     sig = signature_pool(1)[0]
     with pytest.raises(NotImplementedError, match="deadline ladder"):
         service.query(port.E5_2630_V3, sig, 8, deadline_s=0.01)
-    with pytest.raises(NotImplementedError, match="schedule tier"):
-        service.query_schedule(port.E5_2630_V3, [(sig, 1.0)], 8)
-    with pytest.raises(NotImplementedError, match="schedule tier"):
-        service.submit_schedule(port.E5_2630_V3, [(sig, 1.0)], 8)
     handle = service.register(port.E5_2630_V3)
     with pytest.raises(NotImplementedError, match="hot-swap tier"):
         service.swap_machine(handle, port.E5_2630_V3_THROTTLED)
@@ -307,6 +429,7 @@ def test_advisor_cli_runs_on_the_cpu_on_request(tmp_path):
     assert proc.returncode == 0, proc.stderr
     snap = json.loads(out.read_text())
     assert snap["device"] == "cpu"
+    # the warmed search signatures are answered from the cache
     assert snap["tier_counts"]["cache"] + snap["tier_counts"]["batch"] == 40
     assert snap["retraces"] == 0
     assert np.isfinite(snap["qps"])
