@@ -2,7 +2,8 @@
 
 The reference's objects are handed over as plain Python and numpy values
 (``MachineSpec._asdict()``, workload arrays, signature leaves, an LM's
-parameter tree), so this module imports no JAX.  Every numpy array becomes a tensor of the
+parameter tree, calibration samples and parameters), so this module
+imports no JAX.  Every numpy array becomes a tensor of the
 reference's dtype with x64 off: float32 for values, int32 for indices.
 """
 
@@ -147,3 +148,39 @@ def signature_from_arrays(read, write, *, device=DEFAULT_DEVICE) -> BandwidthSig
         read=direction_from_arrays(*read, device=device),
         write=direction_from_arrays(*write, device=device),
     )
+
+
+def calibration_samples_from_arrays(fields: Mapping, *, device=DEFAULT_DEVICE):
+    """The port's :class:`~repro_torch.core.numa.calibrate.CalibrationSamples`
+    from the reference's as numpy values (``samples._asdict()`` with every
+    leaf through ``np.asarray``; ``wl_arrays`` a sequence whose last leaf
+    is the int32 static socket).  Counters and workload fields float32,
+    placements int32."""
+    from repro_torch.core.numa.calibrate import CalibrationSamples
+
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype), device=dev)
+
+    *floats, static_socket = fields["wl_arrays"]
+    return CalibrationSamples(
+        wl_arrays=tuple(t(a, np.float32) for a in floats) + (t(static_socket, np.int32),),
+        placements=t(fields["placements"], np.int32),
+        **{f: t(fields[f], np.float32) for f in (
+            "local_read", "remote_read", "local_write", "remote_write",
+            "instructions", "elapsed",
+        )},
+    )
+
+
+def calibration_params_from_arrays(fields: Mapping, *, device=DEFAULT_DEVICE):
+    """The port's :class:`~repro_torch.core.numa.calibrate.CalibrationParams`
+    from the reference's ``params._asdict()`` as numpy values (float32)."""
+    from repro_torch.core.numa.calibrate import CalibrationParams
+
+    dev = resolve_device(device)
+    return CalibrationParams(**{
+        f: torch.as_tensor(np.array(fields[f], np.float32), device=dev)
+        for f in CalibrationParams._fields
+    })

@@ -16,7 +16,11 @@ Three solvers, as in the reference:
   with integer multiplicities (exact: identical rows freeze together);
 * :func:`simulate_grouped_batch` — the main path's hot loop: a whole
   placement batch (and optionally a batch of workloads) in one pass over
-  a *structured* slab built once per support bucket.
+  a *structured* slab built once per support bucket;
+* :func:`simulate_paired_batch` — the same structured fill over paired
+  rows (workload ``p`` at placement ``p``): a probe sweep, and the
+  calibration's loss, which refills one :class:`PairedSlab` with new
+  capacities at every step.
 
 Every fill runs a fixed count of ``min(rows, resources) + 1`` iterations:
 each iteration freezes at least one row set, so that count reaches the
@@ -653,7 +657,10 @@ def _progressive_fill_structured(
     zero = torch.zeros((), dtype=dtype, device=dense.device)
     one = torch.ones((), dtype=dtype, device=dense.device)
     eps = torch.full((), _EPS, dtype=dtype, device=dense.device)
-    if torch.is_grad_enabled() and (dense.requires_grad or mult.requires_grad):
+    # the search differentiates the multiplicities, the calibration the caps
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dense, mult, dense_caps, rr_caps, ww_caps)
+    ):
         maximum, minimum = jax_maximum, jax_minimum
     else:
         maximum, minimum = torch.maximum, torch.minimum
@@ -828,6 +835,133 @@ def simulate_grouped_batch(
     if not batched:
         result = GroupedBatchResult(*(f[0] for f in result))
     return result
+
+
+class PairedSlab(NamedTuple):
+    """The structured slab of ``P`` paired (workload, placement) problems,
+    row ``p`` workload row ``p`` at placement row ``p``.  Nothing in it
+    depends on the capacities, so a fit builds it once and refills it
+    at every step."""
+
+    dense: torch.Tensor  # (P, G, 2s + L) bank reads, bank writes, links
+    rem_read: torch.Tensor  # (P, C, s, s) off-diagonal remote read usage
+    rem_write: torch.Tensor  # (P, C, s, s)
+    mult: torch.Tensor  # (P, G) group multiplicities (float)
+    read_unit: torch.Tensor  # (P, C, s, s) one member's demand per bank
+    write_unit: torch.Tensor  # (P, C, s, s)
+    node_rates: torch.Tensor  # (s,)
+    iterations: int
+
+
+def paired_slab(
+    machine: MachineSpec,
+    workloads: Workload,  # fields (P, n); static_socket (P,)
+    placements,  # (P, s) integer thread counts per node
+    *,
+    thread_classes: tuple[int, ...],
+    multipath: bool = False,
+    bank_assignment: tuple[int, ...] | None = None,
+) -> PairedSlab:
+    """Build the paired problems' slab: row ``p`` takes the interleave row
+    of its placement's support bucket and the rank-1 per-thread update of
+    its placement, as :func:`simulate_grouped_batch` builds each
+    (workload, placement) cell of its cross product."""
+    bank_assignment = canonical_bank_assignment(machine, bank_assignment)
+    dev = workloads.device
+    s = machine.n_nodes
+    n = workloads.read_static.shape[-1]
+    topo = machine.topology
+    placements = torch.as_tensor(placements, device=dev)
+    support, slab_id = support_patterns(placements)
+    support = torch.as_tensor(support, device=dev)
+    slab_id = torch.as_tensor(slab_id, device=dev).to(torch.int64)
+
+    comps = group_slab_components(machine, workloads, thread_classes, bank_assignment)
+    P, C = comps.base_read.shape[:2]
+    G = C * s
+    offdiag = 1.0 - torch.eye(s, dtype=_F32, device=dev)
+    n_links = topo.n_links
+
+    used = support.to(_F32)
+    il_row = (used / torch.clamp(used.sum(-1, keepdim=True), min=1.0))[slab_id]  # (P, s)
+    il = il_row[:, None, None, :]
+    b_ru = comps.base_read + comps.il_read[..., None] * il  # (P, C, s, s)
+    b_wu = comps.base_write + comps.il_write[..., None] * il
+    nf = placements.to(_F32)
+    pt_row = nf / torch.clamp(nf.sum(-1, keepdim=True), min=1.0)  # (P, s)
+    pt = pt_row[:, None, None, :]
+    ru = b_ru + comps.pt_read[..., None] * pt
+    wu = b_wu + comps.pt_write[..., None] * pt
+    parts = [ru.reshape(P, G, s), wu.reshape(P, G, s)]
+    if n_links:
+        inc = _f32(topo.route_incidence(multipath=multipath), dev).reshape(s, s, n_links)
+        b_lu = torch.einsum("pckj,kjl->pckl", (b_ru + b_wu) * offdiag, inc)
+        pt_link = torch.einsum("pj,kjl->pkl", pt_row, inc)  # (P, s, L)
+        lu = b_lu + (comps.pt_read + comps.pt_write)[..., None] * pt_link[:, None]
+        parts.append(lu.reshape(P, G, n_links))
+    mult = _group_multiplicities(tuple(int(v) for v in thread_classes), n, placements)
+    return PairedSlab(
+        dense=torch.cat(parts, dim=-1),
+        rem_read=ru * offdiag,
+        rem_write=wu * offdiag,
+        mult=mult.to(_F32).reshape(P, G),
+        read_unit=ru,
+        write_unit=wu,
+        node_rates=machine.node_rates(dev),
+        iterations=min(G, 2 * s + 2 * s * s + n_links) + 1,
+    )
+
+
+def fill_paired(
+    machine: MachineSpec,
+    slab: PairedSlab,
+    caps: torch.Tensor | None = None,
+    *,
+    elapsed: float = 1.0,
+) -> GroupedBatchResult:
+    """Run the structured fill over a :class:`PairedSlab` and reduce it to
+    flows: one :class:`GroupedBatchResult` row per pair.  ``caps``
+    (:func:`machine_caps` order) may require grad; the fill then follows
+    the reference's derivative rule."""
+    P, C, s, _ = slab.read_unit.shape
+    dev = slab.dense.device
+    dense_caps, rr_caps, ww_caps = split_caps(machine, caps, dev)
+    x = _progressive_fill_structured(
+        slab.dense, slab.rem_read, slab.rem_write, slab.mult,
+        dense_caps, rr_caps, ww_caps, slab.iterations,
+    )
+    xg = x.reshape(P, C, s)
+    weight = slab.mult.reshape(P, C, s) * xg
+    return GroupedBatchResult(
+        read_flows=(weight[..., None] * slab.read_unit).sum(1) * elapsed,
+        write_flows=(weight[..., None] * slab.write_unit).sum(1) * elapsed,
+        instructions=(weight * slab.node_rates).sum(1) * elapsed,
+        throughput=weight.sum((1, 2)),
+        group_rates=xg,
+    )
+
+
+def simulate_paired_batch(
+    machine: MachineSpec,
+    workloads: Workload,
+    placements,
+    *,
+    thread_classes: tuple[int, ...],
+    caps: torch.Tensor | None = None,
+    multipath: bool = False,
+    elapsed: float = 1.0,
+    bank_assignment: tuple[int, ...] | None = None,
+) -> GroupedBatchResult:
+    """Ground truth of ``P`` paired problems in one pass: workload row
+    ``p`` (fields of shape ``(P, n)``, sharing ``thread_classes``) at
+    placement row ``p`` — the reference's ``vmap(simulate)`` over a probe
+    sweep, where :func:`simulate_grouped_batch` would evaluate the whole
+    ``P x P`` cross product."""
+    slab = paired_slab(
+        machine, workloads, placements, thread_classes=thread_classes,
+        multipath=multipath, bank_assignment=bank_assignment,
+    )
+    return fill_paired(machine, slab, caps, elapsed=elapsed)
 
 
 def simulate(

@@ -12,6 +12,10 @@ once and then from the cache.
 
     PYTHONPATH=src python -m repro_torch.launch.advisor_serve --device cuda \
         --queries 1000 --pool 32 --hit-fraction 0.8 --search-fraction 0.02 --workers 4
+
+``--deadline-ms`` gives every query of the stream a deadline; past it
+the answer comes off the degradation ladder (the snapshot's
+``fidelity_counts`` and ``degraded_rate`` count those answers).
 """
 
 from __future__ import annotations
@@ -54,12 +58,14 @@ def signature_pool(
 
 
 def drive_threads(
-    service: AdvisorService, queries, *, n_workers: int = 4
+    service: AdvisorService, queries, *, n_workers: int = 4,
+    deadline_s: float | None = None,
 ) -> tuple[list, float]:
     """Closed-loop load: ``n_workers`` threads issue synchronous queries,
     each pulling the next query off a shared counter.  ``queries`` is a
-    list of ``(machine_or_handle, signature, n_threads)``.  Returns
-    (advice list in query order, wall seconds)."""
+    list of ``(machine_or_handle, signature, n_threads)``; ``deadline_s``
+    bounds each query (None: the service's default).  Returns (advice
+    list in query order, wall seconds)."""
     results: list = [None] * len(queries)
     counter = itertools.count()
     errors: list[BaseException] = []
@@ -71,7 +77,7 @@ def drive_threads(
                 if i >= len(queries):
                     return
                 machine, sig, n = queries[i]
-                results[i] = service.query(machine, sig, n)
+                results[i] = service.query(machine, sig, n, deadline_s=deadline_s)
         except BaseException as exc:  # surfaced to the caller below
             errors.append(exc)
 
@@ -145,11 +151,13 @@ def serve_stream(
     hit_fraction: float = 0.8,
     search_fraction: float = 0.02,
     workers: int = 4,
+    deadline_s: float | None = None,
 ) -> dict:
     """Warm ``service`` (the sweep group's table and first batch, the hot
     set, and the search machine's two signatures when
     ``search_fraction > 0``), reset its metrics, drive the mixed stream
-    and return the metrics snapshot with the device, qps and wall time."""
+    (each query bounded by ``deadline_s`` when given) and return the
+    metrics snapshot with the device, qps and wall time."""
     from repro_torch.core.numa import E7_4830_V3
 
     sweep_fp = service.register(E7_4830_V3)
@@ -171,7 +179,7 @@ def serve_stream(
         search_sigs=search_sigs, search_target=(search_fp, 32),
         hit_fraction=hit_fraction, search_fraction=search_fraction,
     )
-    results, wall = drive_threads(service, stream, n_workers=workers)
+    results, wall = drive_threads(service, stream, n_workers=workers, deadline_s=deadline_s)
     if any(r is None for r in results):
         raise RuntimeError("a query went unanswered")
     snap = service.metrics.snapshot()
@@ -195,6 +203,9 @@ def main() -> None:
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--max-wait-ms", type=float, default=2.0)
+    parser.add_argument("--deadline-ms", type=float, default=None,
+                        help="per-query deadline (ms); past it the answer "
+                             "comes off the degradation ladder")
     parser.add_argument("--json", type=str, default=None,
                         help="write the metrics snapshot to this path")
     args = parser.parse_args()
@@ -208,6 +219,7 @@ def main() -> None:
         snap = serve_stream(
             service, args.queries, pool=args.pool, hit_fraction=args.hit_fraction,
             search_fraction=args.search_fraction, workers=args.workers,
+            deadline_s=None if args.deadline_ms is None else args.deadline_ms / 1e3,
         )
         print(json.dumps(snap, indent=2))
         if args.json and args.json != "-":

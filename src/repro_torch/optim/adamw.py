@@ -104,8 +104,10 @@ def update(
     """One AdamW step; returns the new parameters and state."""
     step = state.step + 1
     s32 = step.to(_F32)
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32, device=s32.device), s32)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32, device=s32.device), s32)
+    # torch.full, not torch.tensor: a host scalar copied to the card would
+    # synchronise every step
+    c1 = 1.0 - torch.pow(torch.full((), b1, dtype=_F32, device=s32.device), s32)
+    c2 = 1.0 - torch.pow(torch.full((), b2, dtype=_F32, device=s32.device), s32)
 
     def upd(path, p, g, m, v):
         if not p.is_floating_point():

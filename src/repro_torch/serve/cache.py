@@ -63,6 +63,16 @@ class LRUCache:
         with self._lock:
             return key in self._data
 
+    def pop_where(self, pred) -> int:
+        """Drop every entry whose *key* satisfies ``pred``; returns the
+        number removed (the service's per-machine invalidation on a spec
+        hot-swap).  ``pred`` must be pure: it runs under the cache lock."""
+        with self._lock:
+            doomed = [k for k in self._data if pred(k)]
+            for k in doomed:
+                del self._data[k]
+            return len(doomed)
+
     def keys(self) -> list:
         """Snapshot of the keys, oldest first (for tests/introspection)."""
         with self._lock:

@@ -9,7 +9,16 @@ answers is accounted here, per tier:
 * ``search`` — tier-3 warm-started branch and bound on machines past
   ``sweep_limit``;
 * ``schedule`` — phased queries answered by the migration-aware
-  scheduler.
+  scheduler;
+* ``degraded`` — deadline-bounded answers served off the degradation
+  ladder (signature-only ranking / last known good / even spread)
+  instead of the exact tiers.
+
+Orthogonally to the tier, every answer carries a *fidelity*
+(``FIDELITIES``): ``exact`` off the cache, batch, search and schedule
+tiers, ``ranked`` / ``stale`` / ``fallback`` off the ladder's three
+rungs; ``degraded_rate`` in the snapshot is the non-exact share.  Spec
+hot-swaps, guard rollbacks and batcher-thread restarts are counted too.
 
 Latencies land in preallocated per-tier numpy ring buffers, and
 percentiles are computed lazily in :meth:`ServiceMetrics.snapshot`.
@@ -30,7 +39,9 @@ from collections import Counter
 
 import numpy as np
 
-TIERS = ("cache", "batch", "search", "schedule")
+TIERS = ("cache", "batch", "search", "schedule", "degraded")
+
+FIDELITIES = ("exact", "ranked", "stale", "fallback")
 
 
 class _LatencyRing:
@@ -68,9 +79,12 @@ class ServiceMetrics:
         == 0`` — only a genuinely new shape counts after the reset."""
         with self._lock:
             self.tier_counts = {tier: 0 for tier in TIERS}
+            self.fidelity_counts = {f: 0 for f in FIDELITIES}
             self.batch_sizes: Counter = Counter()
             self.batch_calls = 0
             self.retraces = 0
+            self.swaps = 0
+            self.rollbacks = 0
             self.worker_restarts = 0
             if not keep_traces or not hasattr(self, "_trace_keys"):
                 self._trace_keys: set = set()
@@ -85,6 +99,22 @@ class ServiceMetrics:
         with self._lock:
             self.tier_counts[tier] += 1
             self._latency[tier].record(seconds)
+
+    def record_fidelity(self, fidelity: str) -> None:
+        """Count one served answer's fidelity (``exact`` / ``ranked`` /
+        ``stale`` / ``fallback``)."""
+        with self._lock:
+            self.fidelity_counts[fidelity] += 1
+
+    def record_swap(self) -> None:
+        """Count one accepted spec hot-swap (epoch bump)."""
+        with self._lock:
+            self.swaps += 1
+
+    def record_rollback(self) -> None:
+        """Count one rejected or rolled-back recalibration."""
+        with self._lock:
+            self.rollbacks += 1
 
     def record_restart(self) -> None:
         """Count one self-healing batcher-thread restart."""
@@ -112,23 +142,32 @@ class ServiceMetrics:
 
     def snapshot(self) -> dict:
         """A JSON-ready view: per-tier counts and p50/p99 latency (ms),
-        batch-size histogram + mean, and the retrace counter."""
+        fidelity counts and the degraded rate, batch-size histogram + mean,
+        and the retrace, swap, rollback and restart counters."""
         with self._lock:
             counts = dict(self.tier_counts)
+            fidelity = dict(self.fidelity_counts)
             sizes = dict(sorted(self.batch_sizes.items()))
             calls = self.batch_calls
             retraces = self.retraces
+            swaps = self.swaps
+            rollbacks = self.rollbacks
             restarts = self.worker_restarts
             lat = {
                 tier: ring.values().copy()
                 for tier, ring in self._latency.items()
             }
+        n_fid = sum(fidelity.values())
         out: dict = {
             "queries": sum(counts.values()),
             "tier_counts": counts,
+            "fidelity_counts": fidelity,
+            "degraded_rate": (n_fid - fidelity["exact"]) / n_fid if n_fid else 0.0,
             "batch_calls": calls,
             "batch_size_hist": sizes,
             "retraces": retraces,
+            "swaps": swaps,
+            "rollbacks": rollbacks,
             "worker_restarts": restarts,
         }
         total = sum(n * size for size, n in sizes.items())

@@ -30,16 +30,37 @@ Phased queries (:meth:`AdvisorService.query_schedule`) take the
 optimize_schedule` on the search pool, cached and deduplicated like
 one-shot queries.
 
-Not ported yet (they need the calibration slice): spec epochs with
-hot-swap/rollback, the deadline degradation ladder and fault injection.
-Their entry points (``deadline_s``, ``swap_machine``,
-``rollback_machine``) raise ``NotImplementedError`` naming the missing
-tier; nothing answers them through another tier.  Without epochs, cache
-keys carry none.
+Two resilience layers sit on top:
+
+**Spec epochs and hot-swap.**  The registry maps a stable *handle* (the
+fingerprint at registration, or a caller-chosen ``machine_id``) to a
+``(spec, epoch)`` entry.  :meth:`AdvisorService.swap_machine` installs a
+recalibrated spec under the same handle with a bumped epoch; every
+answer key, pending-group key and table key carries the epoch, so
+in-flight queries finish on the spec they started with (the pending
+group pins the spec object) and invalidation is per machine.  The new
+epoch's placement tables are built and one padded batch runs on the new
+spec before the flip, and their shape keys are registered then, so the
+first post-swap queries find a warmed path.
+:meth:`AdvisorService.rollback_machine` restores the previous spec as a
+new epoch.
+
+**Deadlines and the degradation ladder.**  A query may carry
+``deadline_s`` (or inherit ``default_deadline_s``); when the exact tiers
+cannot answer in time, or fail, the service walks down a fidelity
+ladder instead of blocking: ``exact`` → ``ranked`` (signature-only
+roofline via :func:`~repro_torch.core.meshsig.advisor.
+rank_numa_placements`, no simulation) → ``stale`` (this handle's last
+known good exact answer) → ``fallback`` (an even spread).  Every
+:class:`Advice` is tagged with its fidelity, and degraded answers are
+never cached.  Fault injection (:mod:`repro_torch.serve.faults`) hooks
+the batcher, the batch dispatch, the search attempts, the ranked rung,
+the schedule worker and the deadline clock.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 import time
@@ -51,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.meshsig.advisor import rank_numa_placements
 from repro_torch.core.numa.evaluate import placement_array
 from repro_torch.core.numa.machine import MachineSpec
 from repro_torch.core.numa.search import branch_and_bound
@@ -66,19 +88,15 @@ from repro_torch.core.numa.temporal import (
 )
 from repro_torch.core.numa.workload import Workload, mixed_workload
 from repro_torch.serve.cache import LRUCache
+from repro_torch.serve.faults import NO_FAULTS, FaultInjector
 from repro_torch.serve.metrics import ServiceMetrics
-
-
-def _not_ported(tier: str, needs: str) -> NotImplementedError:
-    """The error every entry point of a tier the port lacks raises."""
-    return NotImplementedError(
-        f"the {tier} is not in the PyTorch port yet (it needs {needs})"
-    )
 
 
 class ServiceClosedError(RuntimeError):
     """Raised by every entry point of a closed :class:`AdvisorService`,
-    and set on any future the close drained rather than resolved."""
+    and set on any future the close drained rather than resolved — a type
+    of its own, so callers tell an orderly shutdown from a compute
+    failure (which degrades or propagates, depending on the deadline)."""
 
 
 class QuerySignature(NamedTuple):
@@ -121,13 +139,17 @@ class QuerySignature(NamedTuple):
 @dataclass(frozen=True)
 class Advice:
     """One answered query.  ``tier`` names the tier that *computed* the
-    answer; a later cache hit returns this same object."""
+    answer; a later cache hit returns this same object.  ``fidelity`` is
+    the ladder rung that produced it (``exact`` off the normal tiers) and
+    ``epoch`` the spec version it was computed against."""
 
     placement: tuple[int, ...]  # threads per NUMA node
     predicted_bandwidth: float  # total bytes/s moved at this placement
     objective: float  # work rate (instructions/s), the quantity maximized
-    tier: str  # "batch" | "search"
+    tier: str  # "batch" | "search" | "degraded"
     optimal: bool  # exhaustive sweep, or B&B certificate within its gap
+    fidelity: str = "exact"  # "exact" | "ranked" | "stale" | "fallback"
+    epoch: int = 0  # spec epoch the answer was computed against
 
 
 @dataclass(frozen=True)
@@ -143,6 +165,16 @@ class ScheduleAdvice:
     gain_pct: float
     transition_times: tuple[float, ...]  # boundary stalls (seconds)
     tier: str = "schedule"
+
+
+class _MachineEntry(NamedTuple):
+    """Registry slot: the live spec, its epoch, and the previous entry
+    (one step of history — what :meth:`AdvisorService.rollback_machine`
+    restores)."""
+
+    spec: MachineSpec
+    epoch: int
+    previous: "_MachineEntry | None"
 
 
 class _PlacementTable(NamedTuple):
@@ -163,7 +195,9 @@ class _Pending(NamedTuple):
 
 
 class _PendingGroup(NamedTuple):
-    """One coalescing group's queue plus the spec it is answered on."""
+    """One coalescing group's queue plus its epoch-pinned spec: the batch
+    worker answers from this spec even if a hot-swap lands while the
+    group waits, so no batch straddles two epochs."""
 
     spec: MachineSpec
     items: list  # list[_Pending], mutated in place under the service lock
@@ -206,6 +240,11 @@ class AdvisorService:
     ``sweep_limit`` is the largest composition count the batch tier
     sweeps; larger ``(machine, budget)`` groups go to warm-started branch
     and bound (``search_*``, ``advisor_*``) on ``search_workers`` threads.
+
+    ``default_deadline_s`` (None = wait forever) arms the degradation
+    ladder for every query without its own ``deadline_s``; ``faults``
+    installs a :class:`~repro_torch.serve.faults.FaultInjector` whose
+    clock the deadline math reads and whose sites the workers fire.
     """
 
     def __init__(
@@ -225,6 +264,9 @@ class AdvisorService:
         advisor_seeds: int = 8,
         advisor_max_placements: int = 2048,
         search_workers: int = 2,
+        default_deadline_s: float | None = None,
+        lkg_capacity: int = 1024,
+        faults: FaultInjector | None = None,
         metrics: ServiceMetrics | None = None,
     ):
         if max_batch < 1:
@@ -240,13 +282,20 @@ class AdvisorService:
         self.search_min_nodes = int(search_min_nodes)
         self.advisor_seeds = int(advisor_seeds)
         self.advisor_max_placements = int(advisor_max_placements)
+        self.default_deadline_s = (
+            None if default_deadline_s is None else float(default_deadline_s)
+        )
         self.metrics = metrics if metrics is not None else ServiceMetrics()
+        self.faults = faults if faults is not None else NO_FAULTS
 
-        self._machines: dict[str, MachineSpec] = {}
+        self._machines: dict[str, _MachineEntry] = {}
         self._answers = LRUCache(answer_capacity)
         self._tables = LRUCache(table_capacity)
+        # last-known-good exact answers, keyed without the epoch and not
+        # invalidated on a swap: a stale answer is the ladder's point
+        self._lkg = LRUCache(lkg_capacity)
         self._cond = threading.Condition()
-        # group key (handle, n_threads) -> pending queue
+        # group key (handle, epoch, n_threads) -> epoch-pinned queue
         self._pending: dict[tuple, _PendingGroup] = {}
         # answer key -> Future, so concurrent identical misses compute once
         self._inflight: dict[tuple, Future] = {}
@@ -266,29 +315,102 @@ class AdvisorService:
 
     def register(self, machine: MachineSpec, machine_id: str | None = None) -> str:
         """Add a machine to the registry; returns its *handle* (its
-        fingerprint, or ``machine_id`` if given).  Idempotent."""
+        fingerprint, or ``machine_id`` if given).  Idempotent: a handle
+        already registered is returned as is, so re-presenting the
+        original spec after a hot-swap does not clobber the swapped one."""
         handle = machine_id if machine_id is not None else machine.fingerprint()
         with self._cond:
             if handle not in self._machines:
-                self._machines[handle] = machine
+                self._machines[handle] = _MachineEntry(machine, 0, None)
         return handle
 
-    def _resolve(self, machine) -> tuple[MachineSpec, str]:
-        """``machine`` (spec or handle) -> its ``(spec, handle)``."""
-        handle = machine if isinstance(machine, str) else self.register(machine)
+    def _entry(self, handle: str) -> _MachineEntry:
         with self._cond:
-            spec = self._machines.get(handle)
-        if spec is None:
-            raise KeyError(f"unknown machine handle {machine!r}")
-        return spec, handle
+            entry = self._machines.get(handle)
+        if entry is None:
+            raise KeyError(f"unknown machine handle {handle!r}")
+        return entry
+
+    def _resolve(self, machine) -> tuple[MachineSpec, str, int]:
+        """``machine`` (spec or handle) -> the live ``(spec, handle,
+        epoch)`` a query pins itself to."""
+        handle = machine if isinstance(machine, str) else self.register(machine)
+        entry = self._entry(handle)
+        return entry.spec, handle, entry.epoch
+
+    def epoch_of(self, handle: str) -> int:
+        """The registry's current spec epoch for ``handle`` (bumped by
+        every accepted swap and every rollback)."""
+        return self._entry(handle).epoch
+
+    def machine_spec(self, handle: str) -> MachineSpec:
+        """The live spec currently serving ``handle``."""
+        return self._entry(handle).spec
+
+    # -- hot swap ------------------------------------------------------------
 
     def swap_machine(self, handle: str, new_spec: MachineSpec, *, warm: bool = True) -> int:
-        """Spec hot-swap: not ported yet; raises ``NotImplementedError``."""
-        raise _not_ported("hot-swap tier", "spec epochs and recalibration")
+        """Atomically install ``new_spec`` under ``handle`` with a bumped
+        epoch; returns the new epoch.
+
+        In-flight queries are untouched (their pending groups pinned the
+        old spec).  Answers and placement tables are invalidated for this
+        handle only.  ``warm=True`` builds the new epoch's tables for
+        every budget the handle serves and runs one padded batch on the
+        new spec before the swap is visible.  Raises ValueError when the
+        node or core count changes: recalibration refits bandwidths, not
+        structure."""
+        with self._cond:
+            if self._closed:
+                raise ServiceClosedError("AdvisorService is closed")
+        old = self._entry(handle).spec
+        if (new_spec.n_nodes != old.n_nodes
+                or new_spec.cores_per_node != old.cores_per_node):
+            raise ValueError(
+                f"swap for {handle!r} changes machine structure "
+                f"({old.n_nodes}x{old.cores_per_node} -> "
+                f"{new_spec.n_nodes}x{new_spec.cores_per_node}); "
+                "register a new machine instead"
+            )
+        new_epoch = self._install_spec(handle, new_spec, warm=warm)
+        self.metrics.record_swap()
+        return new_epoch
 
     def rollback_machine(self, handle: str, *, warm: bool = True) -> int:
-        """Spec rollback: not ported yet; raises ``NotImplementedError``."""
-        raise _not_ported("hot-swap tier", "spec epochs and recalibration")
+        """Restore ``handle``'s previous spec as a *new* epoch (epochs only
+        move forward).  Raises RuntimeError when there is none."""
+        entry = self._entry(handle)
+        if entry.previous is None:
+            raise RuntimeError(f"machine {handle!r} has no previous spec")
+        new_epoch = self._install_spec(handle, entry.previous.spec, warm=warm)
+        self.metrics.record_rollback()
+        return new_epoch
+
+    def _install_spec(self, handle: str, new_spec: MachineSpec, *, warm: bool) -> int:
+        # warm the new spec against the budgets this handle serves before
+        # the swap becomes visible: its tables, and one padded batch
+        warmed: list[tuple[int, _PlacementTable]] = []
+        if warm:
+            budgets = sorted({k[2] for k in self._tables.keys() if k[0] == handle})
+            for n_threads in budgets:
+                table = self._build_table(new_spec, n_threads)
+                workloads = self._stacked_workloads(
+                    [QuerySignature((1.0, 0.0, 0.0), (1.0, 0.0, 0.0))], n_threads
+                )
+                _advise_batch(new_spec, workloads, table, (0,))
+                warmed.append((n_threads, table))
+        with self._cond:
+            entry = self._machines[handle]
+            new_epoch = entry.epoch + 1
+            self._machines[handle] = _MachineEntry(new_spec, new_epoch, entry)
+        # per-machine invalidation after the flip, so no window serves a
+        # stale answer against the new epoch
+        self._answers.pop_where(lambda k: k[0] == handle and k[1] != new_epoch)
+        self._tables.pop_where(lambda k: k[0] == handle and k[1] != new_epoch)
+        for n_threads, table in warmed:
+            self._tables.put((handle, new_epoch, n_threads), table)
+            self.metrics.register_trace(self._trace_key(handle, new_epoch, n_threads, table))
+        return new_epoch
 
     # -- public front ends ---------------------------------------------------
 
@@ -296,35 +418,57 @@ class AdvisorService:
               timeout: float | None = None, *,
               deadline_s: float | None = None) -> Advice:
         """Synchronous ask-and-wait.  ``machine`` is a MachineSpec or a
-        registered handle; ``timeout`` raises on expiry.  A
-        ``deadline_s`` needs the degradation ladder, which is not ported
-        yet: it raises ``NotImplementedError``."""
-        if deadline_s is not None:
-            raise _not_ported("deadline ladder", "the ranked and stale tiers")
-        advice, future = self._lookup_or_dispatch(machine, signature, n_threads)
+        registered handle.
+
+        ``deadline_s`` (falling back to ``default_deadline_s``) bounds the
+        wait: past the deadline, or if the exact computation fails, the
+        answer comes off the degradation ladder instead of blocking or
+        raising.  Without a deadline, ``timeout`` raises on expiry.  A
+        closed service raises :class:`ServiceClosedError` either way."""
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        t_deadline = None if deadline_s is None else self.faults.now() + deadline_s
+        t0 = time.perf_counter()
+        advice, future = self._lookup_or_dispatch(
+            machine, signature, n_threads, deadline_s=deadline_s
+        )
         if advice is not None:
             return advice
-        return future.result(timeout)
+        if t_deadline is None:
+            return future.result(timeout)
+        try:
+            return future.result(max(t_deadline - self.faults.now(), 0.0))
+        except ServiceClosedError:
+            raise
+        except BaseException:
+            # deadline expired or the exact tier failed: degrade
+            spec, handle, epoch = self._resolve(machine)
+            return self._degrade(
+                spec, handle, epoch, signature.canonical(), int(n_threads), t0
+            )
 
     def submit(self, machine, signature: QuerySignature, n_threads: int) -> Future:
         """Async front end: a Future resolving to the :class:`Advice`
-        (already resolved on a cache hit)."""
+        (already resolved on a cache hit).  Futures carry no deadline:
+        the ladder is a :meth:`query`-side policy."""
         advice, future = self._lookup_or_dispatch(machine, signature, n_threads)
         if advice is not None:
             future = Future()
             future.set_result(advice)
         return future
 
-    def _lookup_or_dispatch(self, machine, signature, n_threads):
+    def _lookup_or_dispatch(self, machine, signature, n_threads,
+                            deadline_s: float | None = None):
         t0 = time.perf_counter()
         if self._closed:
             raise ServiceClosedError("AdvisorService is closed")
-        spec, handle = self._resolve(machine)
+        spec, handle, epoch = self._resolve(machine)
         sig = signature.canonical()
-        key = (handle, int(n_threads), sig)
+        key = (handle, epoch, int(n_threads), sig)
         hit = self._answers.get(key)
         if hit is not None:
             self.metrics.record_query("cache", time.perf_counter() - t0)
+            self.metrics.record_fidelity(hit.fidelity)
             return hit, None
         with self._cond:
             if self._closed:
@@ -334,6 +478,7 @@ class AdvisorService:
             hit = self._answers.get(key)
             if hit is not None:
                 self.metrics.record_query("cache", time.perf_counter() - t0)
+                self.metrics.record_fidelity(hit.fidelity)
                 return hit, None
             future = self._inflight.get(key)
             if future is None:
@@ -341,10 +486,11 @@ class AdvisorService:
                 self._inflight[key] = future
                 if self.uses_search(spec, n_threads):
                     self._search_pool.submit(
-                        self._run_search, spec, handle, int(n_threads), sig, key, future
+                        self._run_search, spec, handle, epoch, int(n_threads), sig,
+                        key, future, deadline_s,
                     )
                 else:
-                    group = (handle, int(n_threads))
+                    group = (handle, epoch, int(n_threads))
                     pg = self._pending.get(group)
                     if pg is None:
                         pg = _PendingGroup(spec, [])
@@ -352,14 +498,60 @@ class AdvisorService:
                     pg.items.append(_Pending(key, sig, future, time.perf_counter()))
                     self._cond.notify_all()
 
-        def _record(f, t0=t0):
-            if f.cancelled() or f.exception() is not None:
-                return
-            adv = f.result()
-            self.metrics.record_query(adv.tier, time.perf_counter() - t0)
-
-        future.add_done_callback(_record)
+        future.add_done_callback(lambda f: self._record(f, t0))
         return None, future
+
+    def _record(self, future: Future, t0: float) -> None:
+        if future.cancelled() or future.exception() is not None:
+            return
+        adv = future.result()
+        self.metrics.record_query(adv.tier, time.perf_counter() - t0)
+        self.metrics.record_fidelity(getattr(adv, "fidelity", "exact"))
+
+    # -- degradation ladder ----------------------------------------------------
+
+    def _degrade(self, spec: MachineSpec, handle: str, epoch: int,
+                 sig: QuerySignature, n_threads: int, t0: float) -> Advice:
+        """Serve a deadline-missed query off the ladder: signature-only
+        ranking → last known good exact answer → even spread.  Never
+        blocks on the simulator and never caches its answer (the next
+        identical query retries the exact path)."""
+        advice = None
+        try:
+            self.faults.fire("rank")
+            best = rank_numa_placements(
+                spec, sig.workload(n_threads, device=self.device), top_k=1,
+                max_placements=self.advisor_max_placements,
+            )[0]
+            advice = Advice(
+                placement=best.placement,
+                predicted_bandwidth=float("nan"),
+                objective=float(best.predicted_throughput),
+                tier="degraded",
+                optimal=False,
+                fidelity="ranked",
+                epoch=epoch,
+            )
+        except BaseException:
+            lkg = self._lkg.get((handle, n_threads, sig))
+            if lkg is None:
+                lkg = self._lkg.get(("any", handle, n_threads))
+            if lkg is not None:
+                advice = dataclasses.replace(lkg, tier="degraded", fidelity="stale")
+        if advice is None:
+            base, extra = divmod(int(n_threads), spec.n_nodes)
+            advice = Advice(
+                placement=tuple(base + (1 if i < extra else 0) for i in range(spec.n_nodes)),
+                predicted_bandwidth=float("nan"),
+                objective=float("nan"),
+                tier="degraded",
+                optimal=False,
+                fidelity="fallback",
+                epoch=epoch,
+            )
+        self.metrics.record_query("degraded", time.perf_counter() - t0)
+        self.metrics.record_fidelity(advice.fidelity)
+        return advice
 
     # -- phased queries --------------------------------------------------------
 
@@ -400,13 +592,14 @@ class AdvisorService:
         t0 = time.perf_counter()
         if self._closed:
             raise ServiceClosedError("AdvisorService is closed")
-        spec, handle = self._resolve(machine)
+        spec, handle, epoch = self._resolve(machine)
         model = model if model is not None else MigrationModel()
         canon = self._canonical_phases(phases)
-        key = (handle, int(n_threads), "schedule", canon, model)
+        key = (handle, epoch, int(n_threads), "schedule", canon, model)
         hit = self._answers.get(key)
         if hit is not None:
             self.metrics.record_query("cache", time.perf_counter() - t0)
+            self.metrics.record_fidelity("exact")
             return hit, None
         with self._cond:
             if self._closed:
@@ -414,6 +607,7 @@ class AdvisorService:
             hit = self._answers.get(key)
             if hit is not None:
                 self.metrics.record_query("cache", time.perf_counter() - t0)
+                self.metrics.record_fidelity("exact")
                 return hit, None
             future = self._inflight.get(key)
             if future is None:
@@ -423,17 +617,13 @@ class AdvisorService:
                     self._run_schedule, spec, int(n_threads), canon, model, key, future
                 )
 
-        def _record(f, t0=t0):
-            if f.cancelled() or f.exception() is not None:
-                return
-            self.metrics.record_query(f.result().tier, time.perf_counter() - t0)
-
-        future.add_done_callback(_record)
+        future.add_done_callback(lambda f: self._record(f, t0))
         return None, future
 
     def _run_schedule(self, machine: MachineSpec, n_threads: int, canon: tuple,
                       model: MigrationModel, key: tuple, future: Future) -> None:
         try:
+            self.faults.fire("schedule")
             pw = phased_workload(
                 "serve-schedule",
                 [
@@ -475,9 +665,9 @@ class AdvisorService:
             slab_id=torch.as_tensor(slab_id, device=self.device).to(torch.int64),
         )
 
-    def _table_for(self, machine: MachineSpec, handle: str,
-                   n_threads: int) -> _PlacementTable:
-        key = (handle, n_threads)
+    def _table_for(self, machine: MachineSpec, handle: str, n_threads: int,
+                   epoch: int = 0) -> _PlacementTable:
+        key = (handle, epoch, n_threads)
         table = self._tables.get(key)
         if table is None:
             table = self._build_table(machine, n_threads)
@@ -502,6 +692,7 @@ class AdvisorService:
 
     def _batch_loop(self) -> None:
         while True:
+            self.faults.fire("batcher")
             with self._cond:
                 while not self._pending and not self._closed:
                     self._cond.wait()
@@ -555,6 +746,10 @@ class AdvisorService:
         # answer cache first, in-flight retirement second: every moment a
         # key is absent from the in-flight map it is present in the cache
         self._answers.put(key, advice)
+        if isinstance(advice, Advice) and advice.fidelity == "exact":
+            handle, _, n_threads, sig = key[:4]
+            self._lkg.put((handle, n_threads, sig), advice)
+            self._lkg.put(("any", handle, n_threads), advice)
         with self._cond:
             self._inflight.pop(key, None)
         try:
@@ -574,11 +769,12 @@ class AdvisorService:
 
     def _run_batch(self, gkey: tuple, machine: MachineSpec,
                    take: list[_Pending]) -> None:
-        handle, n_threads = gkey
+        handle, epoch, n_threads = gkey
         try:
-            table = self._table_for(machine, handle, n_threads)
+            self.faults.fire("batch")
+            table = self._table_for(machine, handle, n_threads, epoch)
             workloads = self._stacked_workloads([it.sig for it in take], n_threads)
-            self.metrics.register_trace(self._trace_key(handle, n_threads, table))
+            self.metrics.register_trace(self._trace_key(handle, epoch, n_threads, table))
             best, obj, bandwidth = _advise_batch(machine, workloads, table, (0,))
             best = best.cpu().numpy()
             obj = obj.cpu().numpy()
@@ -591,15 +787,17 @@ class AdvisorService:
                     objective=float(obj[i]),
                     tier="batch",
                     optimal=True,
+                    epoch=epoch,
                 )
                 self._finish(item.key, item.future, advice)
         except BaseException as exc:  # resolve waiters, keep the loop alive
             self._fail([(it.key, it.future) for it in take], exc)
 
-    def _trace_key(self, handle: str, n_threads: int,
+    def _trace_key(self, handle: str, epoch: int, n_threads: int,
                    table: _PlacementTable) -> tuple:
         return (
             handle,
+            epoch,
             n_threads,
             self.max_batch,
             int(table.placements.shape[0]),
@@ -608,13 +806,21 @@ class AdvisorService:
 
     # -- search tier -----------------------------------------------------------
 
-    def _run_search(self, machine: MachineSpec, handle: str, n_threads: int,
-                    sig: QuerySignature, key: tuple, future: Future) -> None:
+    def _run_search(self, machine: MachineSpec, handle: str, epoch: int,
+                    n_threads: int, sig: QuerySignature, key: tuple,
+                    future: Future, deadline_s: float | None = None) -> None:
         wl = sig.workload(n_threads, device=self.device)
+        # deadline-aware node budget: a query with a fifth of the 5 s
+        # horizon gets a fifth of the nodes — B&B returns its certified
+        # incumbent at any budget, so a cut degrades the certificate only
         max_nodes = self.search_max_nodes
+        if deadline_s is not None:
+            frac = min(1.0, max(deadline_s, 0.0) / 5.0)
+            max_nodes = max(self.search_min_nodes, int(max_nodes * frac))
         result = None
         for attempt in range(self.search_retries + 1):
             try:
+                self.faults.fire("search")
                 result = branch_and_bound(
                     machine,
                     wl,
@@ -638,7 +844,7 @@ class AdvisorService:
             # objective and bandwidth do not depend on the tier
             table = self._padded_table(np.asarray(result.placement, np.int32)[None, :])
             workloads = self._stacked_workloads([sig], n_threads)
-            self.metrics.register_trace(self._trace_key(handle, n_threads, table))
+            self.metrics.register_trace(self._trace_key(handle, epoch, n_threads, table))
             _, obj, bandwidth = _advise_batch(machine, workloads, table, (0,))
             advice = Advice(
                 placement=tuple(int(v) for v in result.placement),
@@ -646,6 +852,7 @@ class AdvisorService:
                 objective=float(obj[0]),
                 tier="search",
                 optimal=result.optimal,
+                epoch=epoch,
             )
             self._finish(key, future, advice)
         except BaseException as exc:
@@ -657,11 +864,19 @@ class AdvisorService:
                signature: QuerySignature | None = None) -> Advice:
         """Run a ``(machine, budget)`` group's single steady-state shape
         (building its placement table, or on a search-tier machine
-        answering one search) by answering one query."""
+        answering one search) by answering one query; also prime the
+        ladder's ranked rung (its signature fit), so a deadline miss
+        does not pay for it."""
         sig = signature if signature is not None else QuerySignature(
             (0.25, 0.25, 0.25), (0.25, 0.25, 0.25)
         )
-        return self.query(machine, sig, n_threads)
+        advice = self.query(machine, sig, n_threads)
+        spec, _, _ = self._resolve(machine)
+        rank_numa_placements(
+            spec, sig.canonical().workload(int(n_threads), device=self.device), top_k=1,
+            max_placements=self.advisor_max_placements,
+        )
+        return advice
 
     def close(self, timeout: float | None = 5.0) -> None:
         """Stop the service: drain-then-fail, idempotent, never hangs.

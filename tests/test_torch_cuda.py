@@ -1,10 +1,12 @@
 """The port on an NVIDIA GPU: the CUDA selective-scan and flash-attention
 kernels against their plain versions, and the sweep, the placement
 search, the scheduler, the service's tiers, the reduced LMs' prefill
-(attention, mamba and MoE layers), the mamba decode step and the MoE
-dispatch on the card against the same port code on the CPU.  Every test here is marked ``gpu`` and skips
-without a card; this file imports neither JAX nor the JAX package, so it
-runs where only torch is installed:
+(attention, mamba and MoE layers), the mamba decode step, the MoE
+dispatch, the calibration's paired batch, loss gradient and fit, and a
+hot-swap of the service on the card against the same port code on the
+CPU.  Every test here is marked ``gpu`` and skips without a card; this
+file imports neither JAX nor the JAX package, so it runs where only
+torch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -497,3 +499,99 @@ def test_search_and_schedule_tiers_on_the_card(cuda):
     assert counts["search"] == 1 and counts["schedule"] == 1
     assert search.objective == pytest.approx(search_cpu.objective, rel=1e-4)
     assert abs(sched.gain_pct - sched_cpu.gain_pct) <= 0.005
+
+
+def test_paired_batch_and_sweep_loss_gradient_on_the_card_match_cpu(cuda):
+    """The probe sweep's paired batch, and ``_sweep_loss`` with its
+    gradient at the seed, on the card against the CPU (glued 8-socket:
+    multi-hop routes and the attenuation)."""
+    from repro_torch.core.numa import E7_8860_V3, link_groups
+    from repro_torch.core.numa import calibrate as C
+
+    tmpl = C.blind_template(E7_8860_V3)
+    groups = link_groups(tmpl.topology)
+    card = C.collect_sweep(E7_8860_V3, device=cuda)
+    cpu = C.collect_sweep(E7_8860_V3, device="cpu")
+    assert card.device.type == "cuda"
+    for f in ("local_read", "remote_read", "local_write", "remote_write", "instructions"):
+        got, want = getattr(card, f).cpu(), getattr(cpu, f)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5, f
+
+    def loss_and_grad(samples):
+        seed = C.seed_parameters(tmpl, samples, groups)
+        leaves = {k: v.clone().requires_grad_() for k, v in seed._asdict().items()}
+        loss = C._sweep_loss(tmpl, groups, samples, C.CalibrationParams(**leaves), 0.25, (0,))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    (card_loss, card_grads), (cpu_loss, cpu_grads) = loss_and_grad(card), loss_and_grad(cpu)
+    assert card_loss == pytest.approx(cpu_loss, rel=1e-4)
+    scale = max(float(g.abs().max()) for g in cpu_grads)
+    for g, w in zip(card_grads, cpu_grads):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+def test_fit_on_the_card_matches_cpu(cuda):
+    """A blind 60-step fit of E5-2699 v3 SNC-2 from the same (noisy)
+    samples on the card and on the CPU: links and attenuation at rel
+    1e-3, every link recovered within 5%."""
+    from repro_torch.core.numa import E5_2699_V3_SNC2
+    from repro_torch.core.numa import calibrate as C
+    from repro_torch.core.numa.simulator import default_generator
+
+    samples = C.collect_sweep(E5_2699_V3_SNC2, noise_std=0.01,
+                              generator=default_generator(cuda, 5), device=cuda)
+    tmpl = C.blind_template(E5_2699_V3_SNC2)
+    card = C.fit_machine(tmpl, samples, steps=60)
+    cpu = C.fit_machine(tmpl, samples.to("cpu"), steps=60)
+    np.testing.assert_allclose(card.machine.topology.link_bw, cpu.machine.topology.link_bw,
+                               rtol=1e-3)
+    assert card.machine.hop_attenuation == pytest.approx(cpu.machine.hop_attenuation, rel=1e-3)
+    assert np.isfinite(card.loss_history).all() and card.loss_history.shape == (60,)
+    assert float(C.link_relative_errors(card.machine, E5_2699_V3_SNC2).max()) < 0.05
+
+
+def test_fit_loop_makes_no_host_sync(cuda):
+    """The fit's step loop keeps everything on the card: run under
+    ``torch.cuda.set_sync_debug_mode("error")``, any synchronising call
+    (a host copy of a loss, an ``item()``) would raise."""
+    from repro_torch.core.numa import E7_8860_V3, link_groups
+    from repro_torch.core.numa import calibrate as C
+
+    tmpl = C.blind_template(E7_8860_V3)
+    groups = link_groups(tmpl.topology)
+    samples = C.collect_sweep(E7_8860_V3, device=cuda)
+    sweep = C._prepare_sweep(tmpl, groups, samples, (0,))
+    init = C.seed_parameters(tmpl, samples, groups)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, history, final_loss = C._fit_loop(tmpl, groups, sweep, init, 5, 0.03, 0.25, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert history.device.type == "cuda" and history.shape == (5,)
+    assert torch.isfinite(history).all() and torch.isfinite(final_loss)
+
+
+def test_swap_on_the_card_matches_cpu(cuda):
+    """A recalibrated spec swapped in on the card: epoch 1, a warmed table,
+    and answers at rel 1e-4 of a CPU service on the same spec."""
+    from repro_torch.core.numa import E7_4830_V3
+    from repro_torch.launch.advisor_serve import signature_pool
+    from repro_torch.serve import AdvisorService
+
+    drifted = E7_4830_V3._replace(remote_read_bw=E7_4830_V3.remote_read_bw * 0.75,
+                                  remote_write_bw=E7_4830_V3.remote_write_bw * 0.75)
+    sigs = signature_pool(8, seed=9)
+    with AdvisorService(device="cuda") as svc:
+        handle = svc.register(E7_4830_V3, machine_id="prod")
+        svc.warmup(handle, 12)
+        assert svc.swap_machine(handle, drifted) == 1
+        card = [svc.query(handle, s, 12, timeout=120) for s in sigs]
+        assert svc.metrics.snapshot()["swaps"] == 1
+    with AdvisorService(device="cpu") as svc:
+        cpu = [svc.query(drifted, s, 12, timeout=120) for s in sigs]
+    for g, c in zip(card, cpu):
+        assert g.epoch == 1 and g.fidelity == "exact"
+        assert g.objective == pytest.approx(c.objective, rel=1e-4)

@@ -43,6 +43,9 @@ def test_every_module_imports_without_jax_or_repro():
         "repro_torch.core.numa.search",
         "repro_torch.core.numa.temporal",
         "repro_torch.core.meshsig.advisor",
+        "repro_torch.core.numa.calibrate",
+        "repro_torch.serve.faults",
+        "repro_torch.serve.recalibrate",
     } <= set(modules)
     script = textwrap.dedent(
         f"""
@@ -97,7 +100,14 @@ def no_cuda(monkeypatch):
 
 
 def test_default_device_is_cuda_and_raises_without_it(no_cuda):
-    from repro_torch.core.numa import E5_2630_V3, mixed_workload, symmetric_placement
+    from repro_torch.core.numa import (
+        E5_2630_V3,
+        collect_sweep,
+        fit_from_simulated,
+        mixed_workload,
+        probe_suite,
+        symmetric_placement,
+    )
     from repro_torch.core.numa.benchmarks import benchmark_workload
     from repro_torch.core.numa.evaluate import enumerate_placements, evaluate_suite
     from repro_torch.configs.base import get_config
@@ -118,6 +128,9 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
         lambda: evaluate_suite(E5_2630_V3),
         lambda: E5_2630_V3.bank_read_caps(),
         lambda: AdvisorService(),
+        lambda: probe_suite(E5_2630_V3),
+        lambda: collect_sweep(E5_2630_V3),
+        lambda: fit_from_simulated(E5_2630_V3, steps=1),
         lambda: M.init_params(cfg, torch.Generator()),
         lambda: M.init_cache(cfg, 1, 8, torch.bfloat16),
         lambda: generate(cfg, cpu_params, prompts, 6, 2),

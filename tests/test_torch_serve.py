@@ -301,15 +301,22 @@ def test_query_schedule_rejects_empty_phases(service):
 
 
 def test_tiers_not_ported_raise_naming_the_tier(service):
+    """No tier is left unported: the entry points that used to raise
+    ``NotImplementedError`` (a deadline, a swap, a rollback) answer now,
+    and the service module keeps no stand-in that raises it."""
+    import repro_torch.serve.service as service_module
+
+    assert not hasattr(service_module, "_not_ported")
     sig = signature_pool(1)[0]
-    with pytest.raises(NotImplementedError, match="deadline ladder"):
-        service.query(port.E5_2630_V3, sig, 8, deadline_s=0.01)
     handle = service.register(port.E5_2630_V3)
-    with pytest.raises(NotImplementedError, match="hot-swap tier"):
-        service.swap_machine(handle, port.E5_2630_V3_THROTTLED)
-    with pytest.raises(NotImplementedError, match="hot-swap tier"):
-        service.rollback_machine(handle)
-    assert service.metrics.snapshot()["queries"] == 0  # nothing answered instead
+    healthy = service.query(handle, sig, 8, deadline_s=60.0)
+    assert healthy.fidelity == "exact" and healthy.tier == "batch" and healthy.epoch == 0
+    assert service.swap_machine(handle, port.E5_2630_V3_THROTTLED) == 1
+    assert service.rollback_machine(handle) == 2
+    assert service.machine_spec(handle) == port.E5_2630_V3
+    snap = service.metrics.snapshot()
+    assert snap["swaps"] == 1 and snap["rollbacks"] == 1
+    assert snap["queries"] == 1 and snap["fidelity_counts"]["exact"] == 1
 
 
 def test_unknown_handle_raises(service):
