@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from the sources in this checkout and
 drives the port's paths on ``cuda`` in phases, one JSON line each:
 
 1. device — the card, its power limit and the float32 matmul settings;
-2. build — nvcc of every kernel source (all started together), with each
+2. build — nvcc of every kernel source, K1's and K2's backward included
+   (all started together), with each
    library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2) instructions
    counted in its SASS, and each kernel's registers, shared memory and
    spills as ptxas reports them;
@@ -22,6 +23,17 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    window 4096) and qwen3-moe-30b-a3b's (B=2, H=32, Kv=4, S=2048,
    dh=128: GQA 8:1) in bf16, with its time, its bound and PyTorch's SDPA
    beside it;
+   flash_attention_backward — K1's backward kernel against its plain
+   backward at llama3-8b's shape (bf16 and float32), h2o-danube-1.8b's
+   training micro-batch (B=2 x 2,048) and long row (B=1 x 8,192, window
+   4,096), gemma2-9b's (dh 256, window, soft-cap 50) and qwen3-moe-30b-a3b's
+   (GQA 8:1): float32 within rel 1e-4, bf16 2e-2 of each gradient's scale,
+   two calls bit-equal, and dropping the window, the soft-cap or the GQA
+   group sum moving the plain gradient past that; its time beside 2.5
+   times the forward's operations bound, the plain backward's and SDPA's;
+   selective_scan_backward — K2's backward kernel against its plain
+   backward at the two scan shapes, rel 1e-4, bit-equal, one launch a call,
+   its time beside its bytes bound;
 5. quickstart — profile_pair -> fit_signature -> predict_counters on the
    E5-2699 v3 (the paper's pipeline; error < 5%);
 6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
@@ -62,6 +74,10 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    qwen3-moe-30b-a3b: prefill and generate on the card against the port
    on the CPU with the same weights, K1 launched once per attention layer
    and K2 once per mamba layer;
+   lm_reduced_train — one float32 train step of each of those seven on the
+   card against the port on the CPU with the same weights and batch: loss
+   within rel 1e-4, gradient norm within rel 1e-3, K1 and K2 forward and
+   backward once per attention and mamba layer;
 13. lm_danube — h2o-danube-1.8b at full width and depth (random bf16
    weights from a seed): prefill of 2 x 8192 tokens, where the 4096-token
    window acts, K1 (dh 80) launched once per layer;
@@ -75,6 +91,18 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    logits held against the decode path's in float32 and bf16, with the
    bf16 gap read at 8, 16, 32 and 64 layers and each bf16 path's
    distance from its float32 run;
+   lm_danube_train — h2o-danube-1.8b at full size in training: float32
+   weights and moments, bf16 compute, 4 x 2,048 tokens in two
+   micro-batches, six AdamW steps on one batch (the loss falls; K1 24
+   times forward and 24 times backward per micro-batch), tokens/s, peak
+   memory and one step under the profiler; then ``TrainLoop`` with a
+   checkpoint at step 3 and a failure injected at step 4, whose resumed
+   steps 4-6 and final parameters must equal the uninterrupted run's bit
+   for bit;
+   lm_falcon_mamba_train — falcon-mamba-7b at full width with 8 of its 64
+   layers (AdamW's float32 state for all 64 would not fit on the card):
+   four steps at 2 x 2,048, the loss falls, K2 8 times forward and 8 times
+   backward a step;
 16. lm_qwen3_moe — qwen3-moe-30b-a3b at full width and depth (48 layers
    of GQA 32:4 attention and 128 experts top-8, 61.1 GB of bf16 weights,
    alone on the card): prefill of 2 x 2048 tokens (K1 launched once per
@@ -303,7 +331,8 @@ def phase_build() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 
-    sources = [scan_kernel.SOURCE, *flash_kernel.SOURCES.values()]
+    sources = [scan_kernel.SOURCE, scan_kernel.BWD_SOURCE, *flash_kernel.SOURCES.values(),
+               flash_kernel.BWD_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(build.build, sources))
@@ -644,6 +673,250 @@ def phase_flash_attention() -> dict:
             kernel_tflops=ops / kernel_ms / 1e9,
         )
     return results["llama3-8b prefill bf16"]
+
+
+# K1's backward against its plain backward: each gradient within this share
+# of its largest magnitude (float32 products in both; bf16 gradients are
+# rounded once to bf16, 2^-8 relative, and recomputed from bf16 q, k, v)
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def phase_flash_attention_backward() -> dict:
+    """K1's backward kernel against its plain backward (``attention_bwd_ref``,
+    chunked over rows where the whole score matrix would not fit) at the
+    shapes the LM path gives it: llama3-8b's prefill shape in bf16 and
+    float32, h2o-danube-1.8b's training micro-batch (B=2 x 2,048, dh 80; its
+    4,096-token window then acts as causal) and a long danube row (B=1 x
+    8,192, where the window acts), gemma2-9b's (dh 256, window 4,096,
+    soft-cap 50, scores driven into the cap) and qwen3-moe-30b-a3b's (GQA
+    8:1).  Two calls must give equal bits.  Each option that acts (window,
+    soft-cap) must move the plain gradient past the tolerance when dropped,
+    and so must GQA: the dk and dv of each group's first q-head alone, what
+    a backward that did not sum the group would give.  The time stands
+    beside 2.5 times the forward's operations bound (the backward's five
+    products, two of them recomputed, against the forward's two), the
+    plain backward's and SDPA's backward where SDPA computes the same
+    function (no soft-cap; a window as a dense mask).  Returns the danube
+    training case's numbers for the kernels line."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    danube = dict(window=4096)
+    gemma2 = dict(window=4096, logit_cap=50.0)
+    cases = [
+        # label, (B, H, Kv, S, dh), dtype, options, std of q and k, plain rows a chunk
+        ("llama3-8b bf16", (4, 32, 8, 2048, 128), torch.bfloat16, {}, 1.0, None),
+        ("llama3-8b f32", (4, 32, 8, 2048, 128), torch.float32, {}, 1.0, None),
+        ("h2o-danube-1.8b train bf16", (2, 32, 8, 2048, 80), torch.bfloat16, danube, 1.0, None),
+        ("h2o-danube-1.8b long bf16", (1, 32, 8, 8192, 80), torch.bfloat16, danube, 1.0, 1024),
+        ("gemma2-9b bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0, 1024),
+        ("qwen3-moe-30b-a3b bf16", (2, 32, 4, 2048, 128), torch.bfloat16, {}, 1.0, None),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for label, (B, H, Kv, S, dh), dtype, options, std, rows in cases:
+        tol = FLASH_BWD_TOL[dtype]
+
+        def normal(shape, scale):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        q, k = normal((B, H, S, dh), std), normal((B, Kv, S, dh), std)
+        v, dout = normal((B, Kv, S, dh), 0.5), normal((B, H, S, dh), 1.0)
+        lse = torch.empty((B, H, S), device="cuda")
+        out = flash_attention(q, k, v, lse=lse, **options)
+
+        def kernel():
+            return flash_attention_bwd(q, k, v, out, dout, lse, **options)
+
+        def plain(opts=options):
+            return attention_bwd_ref(q, k, v, dout, rows=rows, **opts)
+
+        flash_attention_bwd.launches = 0
+        got, again = kernel(), kernel()
+        sync()
+        launches = flash_attention_bwd.launches
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = plain()
+        errs = {n: rel_gap(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        moved = {}
+        for name in options:
+            if name == "window" and options[name] >= S:
+                continue  # the window reaches past the sequence: no row loses a key
+            without = plain({o: x for o, x in options.items() if o != name})
+            moved[name] = max(rel_gap(a, b) for a, b in zip(without, want))
+            del without
+        if Kv < H:
+            G = H // Kv
+            _, dk1, dv1 = attention_bwd_ref(q[:, ::G], k, v, dout[:, ::G], rows=rows, **options)
+            moved["gqa"] = max(rel_gap(dk1, want[1]), rel_gap(dv1, want[2]))
+            del dk1, dv1
+        del want, got
+        check(launches == 2, f"{label}: two backward calls counted {launches} launches")
+        check(finite, f"{label}: K1 backward gradients are not finite")
+        check(all(e <= tol for e in errs.values()),
+              f"{label}: K1 backward disagrees with the plain backward: {errs}, tolerance {tol}")
+        check(bit_equal, f"{label}: two K1 backward calls differ")
+        for name, gap in moved.items():
+            check(gap > tol, f"{label}: dropping {name} moves the plain gradient by {gap}, "
+                             f"within the tolerance {tol}")
+
+        kernel_ms = cuda_ms(kernel, 3)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms = None
+        if not options.get("logit_cap"):
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            window = options.get("window", 0)
+            if window and window < S:
+                pos = torch.arange(S, device="cuda")
+                mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+                o = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+            else:
+                o = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+            library_ms = cuda_ms(
+                lambda: torch.autograd.grad(o, (qs, ks, vs), dout, retain_graph=True), 3)
+            del o, qs, ks, vs
+        fwd_ops, _, fwd_ops_ms = flash_work(q, k, True, options.get("window", 0))
+        # q, o, dO read and dq written; k, v read and dk, dv written; the lse
+        moved_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+        ops_ms = 2.5 * fwd_ops_ms
+        bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        results[label] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        emit(
+            "flash_attention_backward",
+            case=label,
+            shape=dict(B=B, H=H, Kv=Kv, S=S, dh=dh),
+            dtype=str(dtype).removeprefix("torch."),
+            options=options,
+            qk_std=std,
+            tolerance=tol,
+            plain_rows_per_chunk=rows,
+            rel_err_to_scale=errs,
+            max_abs_err=max_abs,
+            bit_equal=bit_equal,
+            dropping_moves_gradient_by=moved,
+            kernels_per_call=3,
+            kernel_ms=kernel_ms,
+            plain_ms=plain_ms,
+            library_ms=library_ms,
+            library="sdpa backward" if library_ms is not None else None,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            ops_bound_ms=ops_ms,
+            bytes_bound_ms=bytes_ms,
+            kernel_tflops=2.5 * fwd_ops / kernel_ms / 1e9,
+            share_of_bound=bound_ms / kernel_ms,
+        )
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return results["h2o-danube-1.8b train bf16"]
+
+
+def scan_bwd_bytes(B: int, S: int, di: int, n: int) -> int:
+    """K2 backward's bytes: dt, x and dy read and ddt and dx written in
+    float32; B, C and A read; the forward's saved chunk states read; the
+    dA, dB and dC partials written."""
+    from repro_torch.kernels.mamba_scan.kernel import bwd_layout
+
+    layout = bwd_layout(di, n)
+    chunks = -(-S // layout["time_chunk"])
+    return 4 * (5 * B * S * di + 2 * B * S * n + di * n + B * chunks * di * n + B * di * n
+                + 2 * layout["slices"] * B * S * n)
+
+
+def scan_bwd_bytes_ms(B: int, S: int, di: int, n: int) -> float:
+    """K2 backward's bytes bound in ms."""
+    return scan_bwd_bytes(B, S, di, n) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_selective_scan_backward() -> dict:
+    """K2's backward kernel against its plain backward (the reverse
+    recurrence, ``selective_scan_bwd_ref``) at each of ``SCAN_SHAPES``, in
+    float32: every gradient within rel 1e-4 of its scale, two calls equal
+    bit for bit.  Its time stands beside its bytes bound (dt, x and dy
+    read, ddt and dx written, B, C, the saved chunk states read and the dA,
+    dB and dC partials written), its operations bound and the exp pipe's
+    floor (two exponentials per (b, t, d, n)).  Returns the first shape's
+    numbers for the kernels line."""
+    from repro_torch.kernels.mamba_scan.kernel import bwd_layout, selective_scan, selective_scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+
+    sm_clock_hz = float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = None
+    for label, (B, S, di, n) in SCAN_SHAPES:
+        dt, a, b, c, x = scan_inputs(B, S, di, n, 0, "cuda")
+        dy = scan_inputs(B, S, di, n, 1, "cuda")[4]
+        _, states = selective_scan(dt, a, b, c, x, save_states=True)
+        selective_scan_bwd.launches = 0
+        got = selective_scan_bwd(dt, a, b, c, x, dy, states)
+        again = selective_scan_bwd(dt, a, b, c, x, dy, states)
+        sync()
+        launches = selective_scan_bwd.launches / 2
+        bit_equal = all(torch.equal(p, q) for p, q in zip(got, again))
+        del again
+        want = selective_scan_bwd_ref(dt, a, b, c, x, dy)
+        names = ("ddt", "da", "db", "dc", "dx")
+        errs = {k: rel_gap(g, w) for k, g, w in zip(names, got, want)}
+        max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        del got, want
+        check(launches == 1, f"{label}: the scan backward launched {launches} kernels a call")
+        check(all(e <= 1e-4 for e in errs.values()),
+              f"{label}: K2 backward disagrees with the plain backward: {errs}")
+        check(bit_equal, f"{label}: two K2 backward calls differ")
+
+        kernel_ms = cuda_ms(lambda: selective_scan_bwd(dt, a, b, c, x, dy, states), 10)
+        plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(dt, a, b, c, x, dy), 1)
+        layout = bwd_layout(di, n)
+        elems = B * S * di
+        moved_bytes = scan_bwd_bytes(B, S, di, n)
+        # per (b, t, d, n): 4 in the recomputed forward step, 22 in the
+        # reverse step (two exponentials counted as operations too)
+        ops = 26 * elems * n
+        bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        exp_ms = 2 * elems * n / (sms * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        row = row or {
+            "name": "selective_scan_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_bwd.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:61",
+            "gradient_of": "src/repro/models/mamba.py:109 (_linear_scan's custom VJP)",
+            "max_abs_err": max_abs,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,  # no single PyTorch call computes the scan's gradient
+        }
+        emit(
+            "selective_scan_backward",
+            case=label,
+            shape=[B, S, di, n],
+            layout=layout,
+            rel_err_to_scale=errs,
+            max_abs_err=max_abs,
+            bit_equal=bit_equal,
+            launches_per_call=launches,
+            kernel_ms=kernel_ms,
+            plain_ms=plain_ms,
+            bound_ms=bound_ms,
+            bytes_bound_ms=bytes_ms,
+            ops_bound_ms=ops_ms,
+            exp_floor_ms=exp_ms,
+            kernel_gb_per_s=moved_bytes / kernel_ms / 1e6,
+            share_of_bound=bound_ms / kernel_ms,
+        )
+        del dt, a, b, c, x, dy, states
+        torch.cuda.empty_cache()
+    return row
 
 
 def phase_quickstart() -> None:
@@ -1899,6 +2172,286 @@ def phase_lm_falcon_mamba() -> int:
     return path_k2
 
 
+def train_path_run(fn):
+    """One run of a training path: the four kernel counters (K1 and K2,
+    forward and backward) set to 0 just before ``fn`` and read just
+    after; returns ``(result, counts)``."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan, selective_scan_bwd
+
+    counters = {"k1": flash_attention, "k1_bwd": flash_attention_bwd,
+                "k2": selective_scan, "k2_bwd": selective_scan_bwd}
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    sync()
+    return out, {name: f.launches for name, f in counters.items()}
+
+
+def trainable(cfg, device, *, draw_on: str | None = None):
+    """``(params, tree, opt)``: a trainable LM on ``device`` with float32
+    master weights drawn from seed 0 on ``draw_on`` (default ``device``),
+    its AdamW tree and zero moments."""
+    from repro_torch.launch.steps import param_tree
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    draw_on = draw_on or device
+    gen = torch.Generator(device=draw_on).manual_seed(0)
+    params = M.train_mode(M.init_params(cfg, gen, device=draw_on).to(device))
+    tree = param_tree(params)
+    return params, tree, adamw.init(tree, cfg.moment_dtype)
+
+
+def phase_lm_reduced_train() -> None:
+    """One float32 train step of each reduced arch on the card and on the
+    port on the CPU, with the same weights and batch: the loss within rel
+    1e-4, the gradient's global norm within rel 1e-3, and on the card K1
+    forward and backward launched once per attention layer and K2 forward
+    and backward once per mamba layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    for name in REDUCED_ARCHS:
+        cfg = dataclasses.replace(get_config(name).reduced(), compute_dtype="float32")
+        n_attn, n_mamba = layer_kinds(cfg)
+        tokens = torch.as_tensor(
+            np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 41)), dtype=torch.int32)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        step = make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-3, 0, 10))
+        cpu_params, _, cpu_opt = trainable(cfg, "cpu")
+        _, _, cpu_m = step(cpu_params, cpu_opt, batch, 0)
+        params, _, opt = trainable(cfg, "cuda", draw_on="cpu")  # the same initial weights
+        card_batch = {k: v.cuda() for k, v in batch.items()}
+        (_, _, card_m), counts = train_path_run(lambda: step(params, opt, card_batch, 0))
+        loss_gap = abs(float(card_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+        norm_gap = abs(float(card_m["grad_norm"]) - float(cpu_m["grad_norm"])) \
+            / float(cpu_m["grad_norm"])
+        emit(
+            "lm_reduced_train",
+            arch=cfg.name,
+            batch=2, seq=40,
+            attention_layers=n_attn, mamba_layers=n_mamba,
+            loss=float(card_m["loss"]),
+            loss_rel_gap_vs_cpu=loss_gap,
+            grad_norm=float(card_m["grad_norm"]),
+            grad_norm_rel_gap_vs_cpu=norm_gap,
+            launches=counts,
+        )
+        check(counts == {"k1": n_attn, "k1_bwd": n_attn, "k2": n_mamba, "k2_bwd": n_mamba},
+              f"{name}: a train step launched {counts} for {n_attn} attention and "
+              f"{n_mamba} mamba layers")
+        check(loss_gap <= 1e-4, f"{name}: card loss differs from the CPU by rel {loss_gap}")
+        check(norm_gap <= 1e-3, f"{name}: card gradient norm differs from the CPU by rel {norm_gap}")
+
+
+def train_step_ops(cfg, B: int, S: int) -> float:
+    """Operations of one training step: the forward's matrix products
+    (every layer weight and the lm_head once per token) times three for
+    the backward's two, and K1's visible pairs forward (4 dh a pair) plus
+    its backward (2.5 times that)."""
+    from repro_torch.models.model import tree_param_count
+
+    layer_weights = tree_param_count(cfg) - 2 * cfg.padded_vocab * cfg.d_model - cfg.d_model
+    matmul = 6 * B * S * (layer_weights + cfg.d_model * cfg.padded_vocab)
+    n_attn, _ = layer_kinds(cfg)
+    attn = 4 * cfg.head_dim * B * cfg.n_heads * attention_pairs(S, S, True, cfg.sliding_window)
+    return matmul + 3.5 * n_attn * attn
+
+
+def phase_lm_danube_train() -> int:
+    """h2o-danube-1.8b at full size (24 layers, d 2,560, GQA 32:8, dh 80,
+    window 4,096, 1.83 B parameters, nothing cut): float32 master weights
+    and moments, bf16 compute, a global batch of 4 x 2,048 in two
+    micro-batches.  Six AdamW steps on one fixed batch: the loss is finite
+    and falls, K1 launches 24 times forward and 24 times backward per
+    micro-batch.  Then the same six steps through ``TrainLoop`` with a
+    checkpoint every 3 steps and a ``FailureInjector`` at step 4: the run
+    resumes from step 3's checkpoint and reproduces steps 4-6's losses and
+    the final parameters bit for bit.  Returns K1's backward launches in
+    one step (the main path's run)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import tree_param_count
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import FailureInjector, TrainLoop
+
+    cfg = get_config("h2o-danube-1.8b")
+    left_gb = free_card()
+    B, S, accum, n_steps = 4, 2048, 2, 6
+    batch = TokenStream(cfg, S, B, seed=1, device="cuda").batch_at(0)  # one fixed batch
+    step = make_train_step(cfg, accum=accum,
+                           lr_schedule=adamw.cosine_schedule(1e-3, 0, n_steps))
+    t0 = time.perf_counter()
+    params, tree, opt = trainable(cfg, "cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in params.parameters())
+    check(count == tree_param_count(cfg), f"danube holds {count} parameters")
+    state_gb = torch.cuda.memory_allocated() / 1e9
+
+    # the main path's run: the first step
+    (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    losses, walls = [float(metrics["loss"])], []
+    for s in range(1, n_steps):
+        t0 = time.perf_counter()
+        _, opt, metrics = step(params, opt, batch, s)
+        losses.append(float(metrics["loss"]))  # a synchronise
+        walls.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    final = [p.detach().cpu() for p in params.parameters()]
+    per_micro = cfg.n_layers
+    check(counts == {"k1": accum * per_micro, "k1_bwd": accum * per_micro, "k2": 0, "k2_bwd": 0},
+          f"danube train step launched {counts}, not {per_micro} K1 forward and backward "
+          f"per micro-batch")
+    check(all(np.isfinite(losses)), f"danube losses are not finite: {losses}")
+    check(losses[-1] < losses[0], f"danube loss does not fall: {losses}")
+    ms_step = 1e3 * float(np.median(walls))
+    profile = device_profile(lambda: step(params, opt, batch, n_steps),
+                             watch="flash_bwd_dkdv", top=8, expected=accum * per_micro)
+    ops = train_step_ops(cfg, B, S)
+    del params, tree, opt, metrics
+    free_card()
+
+    # the same steps through TrainLoop, killed before step 4 and resumed
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    params, tree, opt = trainable(cfg, "cuda")
+
+    def step_fn(state, s):
+        _, o = state
+        _, o, m = step(params, o, batch, s)
+        return (tree, o), {"loss": float(m["loss"])}
+
+    loop = TrainLoop(step_fn=step_fn, ckpt_dir=ckpt_dir, save_every=3,
+                     injector=FailureInjector({4}))
+    t0 = time.perf_counter()
+    failed = False
+    try:
+        loop.run((tree, opt), n_steps)
+    except FailureInjector.NodeFailure:
+        failed = True
+    first_s = time.perf_counter() - t0
+    saved = store.latest_step(ckpt_dir)
+    ckpt_gb = sum(f.stat().st_size for f in (ckpt_dir / f"step_{saved:08d}").iterdir()) / 1e9 \
+        if saved is not None else None
+    t0 = time.perf_counter()
+    _, end, history = loop.run((tree, opt), n_steps)
+    resume_s = time.perf_counter() - t0
+    resumed_losses = [h["loss"] for h in history]
+    same_params = all(torch.equal(p.detach().cpu(), f) for p, f in zip(params.parameters(), final))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit(
+        "lm_danube_train",
+        arch=cfg.name,
+        params=count,
+        allocated_gb_before=left_gb,
+        init_s=init_s,
+        state_gb=state_gb,
+        global_batch=B, seq=S, accum=accum,
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        moment_dtype=cfg.moment_dtype,
+        launches_per_step=counts,
+        losses=losses,
+        step_s_runs=walls,
+        ms_per_step=ms_step,
+        tokens_per_s=B * S / (ms_step / 1e3),
+        step_bound_ms=ops / BF16_OPS_PER_S * 1e3,
+        step_ops=ops,
+        peak_gb=peak_gb,
+        step_profile=profile,
+        resume=dict(
+            failed_at=4, checkpoint_step=saved, checkpoint_gb=ckpt_gb,
+            first_run_s=first_s, resume_run_s=resume_s, end_step=end,
+            resumed_steps=[h["step"] for h in history],
+            resumed_losses=resumed_losses,
+            losses_bit_equal=resumed_losses == losses[3:],
+            final_params_bit_equal=same_params,
+        ),
+    )
+    check(failed, "the injected failure at step 4 did not fire")
+    check(saved == 3, f"the run killed at step 4 left checkpoint {saved}, not 3")
+    check(end == n_steps and [h["step"] for h in history] == [3, 4, 5],
+          f"the resumed run ran steps {[h['step'] for h in history]}")
+    check(resumed_losses == losses[3:],
+          f"resumed losses {resumed_losses} differ from the uninterrupted {losses[3:]}")
+    check(same_params, "resumed final parameters differ from the uninterrupted run's")
+    return counts["k1_bwd"]
+
+
+def phase_lm_falcon_mamba_train() -> int:
+    """falcon-mamba-7b at full width (d 4,096, d_inner 8,192, N 16, vocab
+    65,024) with 8 of its 64 layers, cut because AdamW's float32 state for
+    all 7.27 B parameters (about 116 GB with the weights and gradients)
+    exceeds the card's 80 GB: four steps at B=2 x 2,048, float32 master
+    weights and moments, bf16 compute.  The loss is finite and falls, and
+    K2 launches 8 times forward and 8 times backward a step.  Returns K2's
+    backward launches in one step (the main path's run)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=8)
+    left_gb = free_card()
+    B, S, n_steps = 2, 2048, 4
+    batch = TokenStream(cfg, S, B, seed=2, device="cuda").batch_at(0)
+    # Adam's first step is a sign step (the gradient clipped to norm 1): its
+    # first-order loss change is about lr * sqrt(1.4e9) nats, so 1e-3 and
+    # 3e-4 overshot on an H100 (11.90, 5.58, 11.63, 9.13 and 11.90, 0.05,
+    # 9.93, 1.43); 1e-5 moves it about 0.4 nats a step
+    step = make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-5, 0, n_steps))
+    params, tree, opt = trainable(cfg, "cuda")
+    count = sum(p.numel() for p in params.parameters())
+    (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    losses, walls = [float(metrics["loss"])], []
+    for s in range(1, n_steps):
+        t0 = time.perf_counter()
+        _, opt, metrics = step(params, opt, batch, s)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step = 1e3 * float(np.median(walls))
+    check(counts == {"k1": 0, "k1_bwd": 0, "k2": cfg.n_layers, "k2_bwd": cfg.n_layers},
+          f"falcon train step launched {counts}, not {cfg.n_layers} K2 forward and backward")
+    check(all(np.isfinite(losses)), f"falcon losses are not finite: {losses}")
+    check(losses[-1] < losses[0], f"falcon loss does not fall: {losses}")
+    profile = device_profile(lambda: step(params, opt, batch, n_steps),
+                             watch="selective_scan_bwd", top=8, expected=cfg.n_layers)
+    # least time: the matrix products at bf16 peak, plus each layer's scan
+    # forward and backward at their bytes bounds
+    scan_ms = cfg.n_layers * (scan_bytes_ms(B, S, cfg.d_inner, cfg.ssm_state)
+                              + scan_bwd_bytes_ms(B, S, cfg.d_inner, cfg.ssm_state))
+    bound_ms = train_step_ops(cfg, B, S) / BF16_OPS_PER_S * 1e3 + scan_ms
+    emit(
+        "lm_falcon_mamba_train",
+        arch=cfg.name,
+        layers=cfg.n_layers,
+        layers_full=full.n_layers,
+        params=count,
+        allocated_gb_before=left_gb,
+        batch=B, seq=S,
+        launches_per_step=counts,
+        losses=losses,
+        step_s_runs=walls,
+        ms_per_step=ms_step,
+        tokens_per_s=B * S / (ms_step / 1e3),
+        step_bound_ms=bound_ms,
+        scans_bound_ms=scan_ms,
+        peak_gb=peak_gb,
+        step_profile=profile,
+    )
+    return counts["k2_bwd"]
+
+
 def phase_lm_qwen3_moe() -> None:
     """qwen3-moe-30b-a3b at full width and depth on one card: 48 layers of
     GQA attention (K1 once per layer in a prefill) and 128 experts top-8
@@ -2036,6 +2589,16 @@ def main() -> int:
     phase_build()
     scan_row = phase_selective_scan()
     flash = phase_flash_attention()
+    flash_bwd_row = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "design": "cuda cores",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:113",
+        "gradient_of": "src/repro/models/attention.py:72 (XLA autodiff of blocked_attention)",
+        **phase_flash_attention_backward(),
+    }
+    scan_bwd_row = phase_selective_scan_backward()
     phase_quickstart()
     phase_sweeps()
     phase_placement_search()
@@ -2044,6 +2607,7 @@ def main() -> int:
     phase_calibration()
     phase_service_resilience()
     phase_lm_reduced()
+    phase_lm_reduced_train()
     phase_lm_danube()
     flash_row = {
         "name": "flash_attention",
@@ -2055,8 +2619,10 @@ def main() -> int:
         **flash,
     }
     scan_row["launches"] = phase_lm_falcon_mamba()  # one falcon-mamba-7b prefill call
+    flash_bwd_row["launches"] = phase_lm_danube_train()  # one danube train step
+    scan_bwd_row["launches"] = phase_lm_falcon_mamba_train()  # one falcon (8 layers) step
     phase_lm_qwen3_moe()
-    print(json.dumps({"kernels": [scan_row, flash_row]}), flush=True)
+    print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

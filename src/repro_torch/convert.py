@@ -138,6 +138,42 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     return LM(t(tree["embed"]["table"]), layers, t(tree["final_norm"]), lm_head)
 
 
+def lm_params_to_reference(cfg, lm) -> dict:
+    """The inverse of :func:`lm_params_from_reference`: the reference's
+    nested parameter tree of numpy arrays, each slot's leaves stacked over
+    groups (``groups["slot<s>"]``, leading axis ``g``), from the port's
+    :class:`~repro_torch.models.model.LM` or from a mapping of its
+    parameter names to tensors (e.g. each leaf's ``.grad``).  Leaves keep
+    their dtype, except bfloat16, which numpy lacks: it comes back as
+    float32 (exact)."""
+    named = dict(lm.named_parameters()) if hasattr(lm, "named_parameters") else dict(lm)
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    tree: dict = {}
+    stacks: dict[tuple, list] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i = int(parts[1])
+            key = ("groups", f"slot{i % cfg.group_size}", *parts[2:])
+            stacks.setdefault(key, [None] * cfg.n_groups)[i // cfg.group_size] = host(t)
+        else:
+            key = tuple(parts)
+            node = tree
+            for k in key[:-1]:
+                node = node.setdefault(k, {})
+            node[key[-1]] = host(t)
+    for key, per_group in stacks.items():
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = np.stack(per_group)
+    return tree
+
+
 def signature_from_arrays(read, write, *, device=DEFAULT_DEVICE) -> BandwidthSignature:
     """A :class:`BandwidthSignature` from the reference's leaves: ``read``
     and ``write`` are each the four direction leaves (``static_socket``,

@@ -17,7 +17,10 @@
 // wiped by the next live tile's rescale) and the final sum clamped to
 // 1e-30, all as in the TPU kernel.  This file takes float32 inputs (every
 // product and sum in float32, which rules out TF32 and the bf16 tensor-core
-// products); bfloat16 inputs go to flash_attention_bf16.cu.  No backward.
+// products); bfloat16 inputs go to flash_attention_bf16.cu.  For training it
+// also writes each row's float32 log-sum-exp, m + log l, which the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from; serving
+// passes a null pointer.
 //
 // Design:
 // one block of 128 threads per (q tile of BQ rows, q-head, batch).  The
@@ -65,6 +68,7 @@ struct Params {
   float scale;
   int causal, window;
   float logit_cap;
+  float* lse;  // (B, H, Sq) float32, or null
 };
 
 template <int DH, int BQ, int BK>
@@ -214,6 +218,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < DPT; ++j)
         og[row * p.o_ss + tx + kColThreads * j] = acc[i][j] / denom;
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(static_cast<long long>(b) * p.heads + h) * p.sq + row] = m[i] + logf(denom);
     }
   }
 }
@@ -250,7 +256,8 @@ cudaError_t dispatch_dh(const Params& p, int batch, int dh, cudaStream_t stream)
 
 // Plain C entry point (bound with ctypes), the signature of
 // flash_attention_bf16.cu's; q, k, v and o are float32.  Strides are in
-// elements; dh is contiguous.  Launches on `stream`, does not
+// elements; dh is contiguous; `lse` is null or a contiguous float32
+// (B, H, Sq) buffer for the rows' log-sum-exp.  Launches on `stream`, does not
 // synchronise, allocates nothing.  Returns cudaGetLastError() after the
 // launch (or the error of cudaFuncSetAttribute), or cudaErrorInvalidValue
 // for a head dim without an instantiation, an empty shape or heads %
@@ -262,13 +269,13 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int causal, int window, float logit_cap, void* stream) {
+    float scale, int causal, int window, float logit_cap, float* lse, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || sq <= 0 || skv <= 0 ||
       heads % kv_heads != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{q, k, v, o,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                 heads, kv_heads, sq, skv, scale, causal, window, logit_cap};
+                 heads, kv_heads, sq, skv, scale, causal, window, logit_cap, lse};
   return static_cast<int>(dispatch_dh(p, batch, dh, static_cast<cudaStream_t>(stream)));
 }

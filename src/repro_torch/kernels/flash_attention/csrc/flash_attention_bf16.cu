@@ -13,7 +13,10 @@
 // optional tanh soft-cap, GQA (q-head h reads kv-head h / (H / Kv)), the
 // mask value -1e30 (a tile whose columns are all masked for a row stays
 // finite and is wiped by the next live tile's rescale) and the final sum
-// clamped to 1e-30, as the TPU kernel and flash_attention.cu do.  Scores,
+// clamped to 1e-30, as the TPU kernel and flash_attention.cu do; for
+// training it also writes each row's float32 log-sum-exp (the backward,
+// flash_attention_bwd.cu, recomputes the probabilities from it; serving
+// passes a null pointer).  Scores,
 // the running max and sum, and the output accumulator are float32; the
 // probabilities are rounded to bf16 for the P V product (at most 2^-9
 // relative per weight); the output is bf16.
@@ -84,6 +87,7 @@ struct Params {
   float scale;
   int causal, window;
   float logit_cap;
+  float* lse;  // (B, H, Sq) float32, or null
 };
 
 template <int DHP, int BK>
@@ -348,6 +352,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + col) =
               __floats2bfloat162_rn(o[j] * f, o[j + 1] * f);
       }
+      if (p.lse != nullptr && lane % 4 == 0) {
+        // m and l are in log2 units: ln(sum e^s) = (m + log2 l) ln 2
+        constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = wq0 + r0 + 8 * r;
+          if (row < p.sq)
+            p.lse[(static_cast<long long>(b) * p.heads + h) * p.sq + row] =
+                (m[r] + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
+        }
+      }
     }
   }
 }
@@ -421,7 +436,8 @@ cudaError_t launch(const Inputs& in, const Params& p, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes), the signature of
 // flash_attention.cu's; q, k, v and o are bfloat16.  Strides are in
 // elements; dh is contiguous; base addresses and the strides in bytes
-// must be multiples of 16 (TMA).  Launches on `stream`, does not
+// must be multiples of 16 (TMA); `lse` is null or a contiguous float32
+// (B, H, Sq) buffer for the rows' log-sum-exp.  Launches on `stream`, does not
 // synchronise, allocates nothing.  Returns cudaGetLastError() after the
 // launch (or the error of cudaFuncSetAttribute), or cudaErrorInvalidValue
 // for a head dim that is not a multiple of 8 up to 256, an empty shape,
@@ -433,14 +449,14 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int causal, int window, float logit_cap, void* stream) {
+    float scale, int causal, int window, float logit_cap, float* lse, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || sq <= 0 || skv <= 0 ||
       heads % kv_heads != 0 || dh <= 0 || dh > 256 || dh % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Inputs in{q, k, v, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, batch};
   const Params p{o, o_sb, o_sh, o_ss, heads, kv_heads, sq, skv, dh,
-                 scale, causal, window, logit_cap};
+                 scale, causal, window, logit_cap, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // dh padded to 64, 128 or 256 columns; dh 256 takes 64-key tiles to fit
   // shared memory and registers

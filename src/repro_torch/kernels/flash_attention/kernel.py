@@ -1,5 +1,6 @@
-"""Flash attention forward as hand-written CUDA kernels for Hopper (port
-of the Pallas kernel ``repro.kernels.flash_attention.kernel``).
+"""Flash attention as hand-written CUDA kernels for Hopper: the forward
+(port of the Pallas kernel ``repro.kernels.flash_attention.kernel``) and
+its backward, which the Pallas kernel does not have.
 
 :func:`flash_attention` launches one of two kernels on CUDA tensors,
 chosen by the inputs' dtype as the design, not as a fallback:
@@ -22,7 +23,13 @@ CUDA call that cannot build or launch its kernel raises.
 The kernels read their operands through (batch, head, seq) strides, so
 views of the model's (B, S, H, dh) tensors, transposed to (B, H, S, dh),
 go in without a copy; dh must be contiguous, and for bfloat16 (TMA) the
-base addresses and the strides in bytes must be multiples of 16.
+base addresses and the strides in bytes must be multiples of 16.  For
+training the forward also writes the float32 row log-sum-exp (``lse``),
+from which :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
+CUDA cores, float32 arithmetic, both input dtypes, no atomics) recomputes
+the probabilities; serving passes none.  ``flash_attention_bwd.launches``
+counts its calls, each of which launches three kernels (D = rowsum(dO O),
+dK and dV, dQ).
 """
 
 from __future__ import annotations
@@ -33,14 +40,19 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     torch.bfloat16: CSRC / "flash_attention_bf16.cu",
     torch.float32: CSRC / "flash_attention.cu",
 }
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # dh values both kernels take
+BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # dh values every kernel takes
 _TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 
 
@@ -52,6 +64,20 @@ def _library(dtype: torch.dtype) -> ctypes.CDLL:
         [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_void_p] * 2
+    )
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    fn = lib.flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     )
     return lib
@@ -90,13 +116,23 @@ def flash_attention(
     window: int = 0,
     logit_cap: float = 0.0,
     out: torch.Tensor | None = None,  # (B, H, Sq, dh), written in place
+    lse: torch.Tensor | None = None,  # (B, H, Sq) float32, written in place
 ) -> torch.Tensor:
     """Attention output ``(B, H, Sq, dh)`` in q's dtype (``out`` when
     given).  Queries are right-aligned: row ``r`` sits at position
-    ``r + Skv - Sq``."""
+    ``r + Skv - Sq``.  With ``lse`` (contiguous float32) the kernel also
+    writes each row's log-sum-exp of its scaled, capped, masked scores,
+    which :func:`flash_attention_bwd` takes."""
     _check(q, k, v, out)
+    if lse is not None and (
+        lse.shape != q.shape[:3] or lse.dtype != torch.float32 or lse.device != q.device
+        or not lse.is_contiguous()
+    ):
+        raise ValueError(f"lse must be contiguous float32 {tuple(q.shape[:3])} on {q.device}")
     if q.device.type == "cpu":
         result = attention_ref(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
+        if lse is not None:
+            lse.copy_(attention_lse_ref(q, k, causal=causal, window=window, logit_cap=logit_cap))
         return result if out is None else out.copy_(result)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
@@ -121,7 +157,8 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, Kv, Sq, Skv, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            dh**-0.5, int(causal), int(window), float(logit_cap), stream,
+            dh**-0.5, int(causal), int(window), float(logit_cap),
+            None if lse is None else lse.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
@@ -130,3 +167,70 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, H, Sq, dh)
+    k: torch.Tensor,  # (B, Kv, Skv, dh)
+    v: torch.Tensor,  # (B, Kv, Skv, dh)
+    out: torch.Tensor,  # (B, H, Sq, dh): the forward's output
+    dout: torch.Tensor,  # (B, H, Sq, dh): its gradient
+    lse: torch.Tensor | None,  # (B, H, Sq) float32: the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: int = 0,
+    logit_cap: float = 0.0,
+    grads: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention`, in the inputs' dtype
+    (``grads``, three tensors shaped as q, k and v, are written in place
+    when given).  On CPU tensors the plain version
+    (:func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`)
+    recomputes the forward and ignores ``out`` and ``lse``; on CUDA
+    tensors the kernel needs both."""
+    _check(q, k, v, out)
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} on {q.device}")
+    if q.device.type == "cpu":
+        result = attention_bwd_ref(q, k, v, dout, causal=causal, window=window,
+                                   logit_cap=logit_cap)
+        if grads is None:
+            return result
+        return tuple(g.copy_(r) for g, r in zip(grads, result))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not {q.device}")
+    B, H, Sq, dh = q.shape
+    Kv, Skv = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} has no kernel instantiation {HEAD_DIMS}")
+    if lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("the CUDA backward needs the forward's contiguous float32 lse")
+    if grads is None:
+        grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                      for t in (q, k, v))
+    for want, g in zip((q, k, v), grads):
+        if g.shape != want.shape or g.dtype != q.dtype or g.device != q.device:
+            raise ValueError(f"gradient buffer {tuple(g.shape)} {g.dtype} does not fit")
+    tensors = (q, k, v, out, dout, *grads)
+    for t in tensors:
+        if t.stride(3) != 1:
+            raise ValueError("every operand of the backward must have a contiguous head dim")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in tensors))
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            ptrs, strides, lse.data_ptr(), delta.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, H, Kv, Sq, Skv, dh,
+            dh**-0.5, int(causal), int(window), float(logit_cap), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {rc}")
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0

@@ -8,7 +8,10 @@
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,   y_t = sum_n h_t * C_t,
 //
 // from h_0 = 0, in the (B, S, d_inner) layout; the final state is not
-// returned (as in the TPU kernel).  No CUDA block carries state to another,
+// returned (as in the TPU kernel).  For training it optionally writes the
+// float32 state at the start of every time chunk, (B, S / kChunk, d_inner,
+// N), from which selective_scan_bwd.cu recomputes a chunk's states; serving
+// passes a null pointer and runs an instantiation without the store.  No CUDA block carries state to another,
 // so the time walk is a loop inside the block, as the TPU grid's chunk axis.
 //
 // What bounds it on an H100 SXM (132 SMs, HBM3 at 3.35 TB/s).  At
@@ -82,7 +85,15 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "scan_async.cuh"
+
 namespace {
+
+using scan::commit;
+using scan::copy16;
+using scan::copy4;
+using scan::exp2_approx;
+using scan::wait_pending;
 
 constexpr int kThreads = 128;       // threads a block
 constexpr int kChunk = 16;          // time steps a stage
@@ -107,36 +118,6 @@ struct Tile {
   static constexpr int kPartial = kLanes * kChannels * kRow;
   static constexpr int kBytes = (kStages * kStage + 2 * kPartial) * 4;
 };
-
-__device__ __forceinline__ float exp2_approx(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 (or 4) bytes to shared memory; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void copy16(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int Pending>
-__device__ __forceinline__ void wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
-}
 
 // Issue the copies of time chunk `t0` of one (batch row, channel tile) into
 // one ring stage: the dt and x tiles (kChunk x kChannels, rows d_inner
@@ -218,7 +199,7 @@ __device__ __forceinline__ void store_chunk(const float* partial, float* y, size
   }
 }
 
-template <int N, bool kVec>
+template <int N, bool kVec, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_fwd_kernel(const float* __restrict__ dt,  // (B, S, di)
                           const float* __restrict__ a,   // (di, N)
@@ -226,6 +207,7 @@ selective_scan_fwd_kernel(const float* __restrict__ dt,  // (B, S, di)
                           const float* __restrict__ c,   // (B, S, N)
                           const float* __restrict__ x,   // (B, S, di)
                           float* __restrict__ y,         // (B, S, di)
+                          float* __restrict__ states,    // (B, chunks, di, N) or null
                           int seqlen, int d_inner) {
   using T = Tile<N>;
   extern __shared__ __align__(16) float smem[];
@@ -266,6 +248,11 @@ selective_scan_fwd_kernel(const float* __restrict__ dt,  // (B, S, di)
     }
     commit();
 
+    if (kSave && d0 + ch < d_inner) {
+      // the state entering chunk k, four states of this lane's channel
+      const size_t at = ((static_cast<size_t>(blockIdx.y) * chunks + k) * d_inner + d0 + ch) * N + n0;
+      *reinterpret_cast<float4*>(states + at) = make_float4(h[0], h[1], h[2], h[3]);
+    }
     const float* stage = smem + (k % kStages) * T::kStage;
     const float* s_dt = stage + ch;
     const float* s_x = stage + T::kIo + ch;
@@ -304,28 +291,32 @@ selective_scan_fwd_kernel(const float* __restrict__ dt,  // (B, S, di)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int N, bool kVec>
+template <int N, bool kVec, bool kSave>
 cudaError_t launch(const float* dt, const float* a, const float* b, const float* c,
-                   const float* x, float* y, int batch, int seqlen, int d_inner,
-                   cudaStream_t stream) {
+                   const float* x, float* y, float* states, int batch, int seqlen,
+                   int d_inner, cudaStream_t stream) {
   using T = Tile<N>;
-  auto kernel = selective_scan_fwd_kernel<N, kVec>;
+  auto kernel = selective_scan_fwd_kernel<N, kVec, kSave>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((d_inner + T::kChannels - 1) / T::kChannels, batch);
-  kernel<<<grid, kThreads, T::kBytes, stream>>>(dt, a, b, c, x, y, seqlen, d_inner);
+  kernel<<<grid, kThreads, T::kBytes, stream>>>(dt, a, b, c, x, y, states, seqlen, d_inner);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t launch(const float* dt, const float* a, const float* b, const float* c,
-                   const float* x, float* y, int batch, int seqlen, int d_inner,
-                   cudaStream_t stream) {
+                   const float* x, float* y, float* states, int batch, int seqlen,
+                   int d_inner, cudaStream_t stream) {
   const bool vec = d_inner % 4 == 0 && aligned16(dt) && aligned16(x) && aligned16(b) &&
                    aligned16(c);
-  return vec ? launch<N, true>(dt, a, b, c, x, y, batch, seqlen, d_inner, stream)
-             : launch<N, false>(dt, a, b, c, x, y, batch, seqlen, d_inner, stream);
+  if (states != nullptr) {
+    return vec ? launch<N, true, true>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, stream)
+               : launch<N, false, true>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, stream);
+  }
+  return vec ? launch<N, true, false>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, stream)
+             : launch<N, false, false>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, stream);
 }
 
 template <int N>
@@ -338,14 +329,16 @@ void describe(int* out) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
+// Plain C entry point (bound with ctypes).  `states` is null, or float32
+// (B, ceil(S / kChunk), d_inner, d_state), 16-byte aligned, and receives the
+// state entering each time chunk.  Launches on `stream`, does not
 // synchronise, allocates nothing.  Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a state width without an
 // instantiation or an empty shape.
 extern "C" int selective_scan_fwd_f32(const float* dt, const float* a,
                                       const float* b, const float* c,
-                                      const float* x, float* y, int batch,
-                                      int seqlen, int d_inner, int d_state,
+                                      const float* x, float* y, float* states,
+                                      int batch, int seqlen, int d_inner, int d_state,
                                       void* stream) {
   if (batch <= 0 || seqlen <= 0 || d_inner <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -353,11 +346,11 @@ extern "C" int selective_scan_fwd_f32(const float* dt, const float* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d_state) {
     case 4:
-      return static_cast<int>(launch<4>(dt, a, b, c, x, y, batch, seqlen, d_inner, s));
+      return static_cast<int>(launch<4>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, s));
     case 8:
-      return static_cast<int>(launch<8>(dt, a, b, c, x, y, batch, seqlen, d_inner, s));
+      return static_cast<int>(launch<8>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, s));
     case 16:
-      return static_cast<int>(launch<16>(dt, a, b, c, x, y, batch, seqlen, d_inner, s));
+      return static_cast<int>(launch<16>(dt, a, b, c, x, y, states, batch, seqlen, d_inner, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

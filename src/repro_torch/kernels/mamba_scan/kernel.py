@@ -1,5 +1,6 @@
-"""Selective scan (mamba-1) forward as a hand-written CUDA kernel for
-Hopper (port of the Pallas kernel ``repro.kernels.mamba_scan.kernel``).
+"""Selective scan (mamba-1) as hand-written CUDA kernels for Hopper: the
+forward (port of the Pallas kernel ``repro.kernels.mamba_scan.kernel``)
+and its backward, which the Pallas kernel does not have.
 
 :func:`selective_scan` launches ``csrc/selective_scan.cu`` on CUDA
 tensors: one block per (batch row, tile of channels) walks the sequence
@@ -13,6 +14,14 @@ one launch.  On CPU tensors it runs the plain version
 There is no fallback between the two: a CUDA call that cannot build or
 launch the kernel raises.  ``selective_scan.launches`` counts the
 kernel's launches.
+
+For training the forward also saves the float32 state entering every time
+chunk (``save_states``), and :func:`selective_scan_bwd` launches
+``csrc/selective_scan_bwd.cu``: one launch walks the chunks in reverse,
+recomputes each chunk's states from the saved one and runs the reverse
+recurrence, writing ddt and dx whole and dA, dB and dC as partials that
+this wrapper sums in a fixed order (no atomics anywhere, so two calls give
+equal bits).  ``selective_scan_bwd.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -23,9 +32,10 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref, selective_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
+BWD_SOURCE = SOURCE.with_name("selective_scan_bwd.cu")
 STATE_WIDTHS = (4, 8, 16)  # d_state values the kernel is instantiated for
 
 
@@ -33,10 +43,29 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     fn = lib.selective_scan_fwd_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.selective_scan_tiles.restype = ctypes.c_int
     lib.selective_scan_tiles.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    fn = lib.selective_scan_bwd_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.selective_scan_bwd_layout.restype = ctypes.c_int
+    lib.selective_scan_bwd_layout.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def bwd_layout(d_inner: int, d_state: int) -> dict[str, int]:
+    """The backward kernel's layout: time steps between the states the
+    forward saves, and the number of dB / dC partial slices."""
+    out = (ctypes.c_int * 2)()
+    if _bwd_library().selective_scan_bwd_layout(d_inner, d_state, out) != 0:
+        raise ValueError(f"d_state {d_state} has no kernel instantiation {STATE_WIDTHS}")
+    return dict(zip(("time_chunk", "slices"), out))
 
 
 def tiles(d_state: int) -> dict[str, int]:
@@ -78,27 +107,91 @@ def selective_scan(
     b: torch.Tensor,  # (B, S, N) f32
     c: torch.Tensor,  # (B, S, N) f32
     x: torch.Tensor,  # (B, S, di) f32
-) -> torch.Tensor:
-    """``y`` (B, S, di) of the selective scan from a zero state."""
+    *,
+    save_states: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor | None]:
+    """``y`` (B, S, di) of the selective scan from a zero state.  With
+    ``save_states`` returns ``(y, states)``: on a card the float32 state
+    entering each time chunk, ``(B, ceil(S / chunk), di, N)``, which
+    :func:`selective_scan_bwd` takes; on the CPU ``None`` (the plain
+    backward recomputes every state)."""
     B, S, di, n = _check(dt, a, b, c, x)
     if x.device.type == "cpu":
-        return selective_scan_ref(dt, a, b, c, x)[0]
+        y = selective_scan_ref(dt, a, b, c, x)[0]
+        return (y, None) if save_states else y
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cpu or cuda, not {x.device}")
     if n not in STATE_WIDTHS:
         raise ValueError(f"d_state {n} has no kernel instantiation {STATE_WIDTHS}")
     lib = _library()
     y = torch.empty_like(x)
+    states = None
+    if save_states:
+        chunk = tiles(n)["time_chunk"]
+        states = torch.empty((B, -(-S // chunk), di, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.selective_scan_fwd_f32(
             dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            x.data_ptr(), y.data_ptr(), B, S, di, n, stream,
+            x.data_ptr(), y.data_ptr(), None if states is None else states.data_ptr(),
+            B, S, di, n, stream,
         )
     if rc != 0:
         raise RuntimeError(f"selective_scan launch failed: cudaError {rc}")
     selective_scan.launches += 1
-    return y
+    return (y, states) if save_states else y
 
 
 selective_scan.launches = 0
+
+
+def selective_scan_bwd(
+    dt: torch.Tensor,  # (B, S, di) f32
+    a: torch.Tensor,  # (di, N) f32
+    b: torch.Tensor,  # (B, S, N) f32
+    c: torch.Tensor,  # (B, S, N) f32
+    x: torch.Tensor,  # (B, S, di) f32
+    dy: torch.Tensor,  # (B, S, di) f32: the gradient of y
+    states: torch.Tensor | None,  # the forward's saved states (a card) or None (the CPU)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(ddt, da, db, dc, dx)`` of :func:`selective_scan`, float32.  On
+    CPU tensors the plain version
+    (:func:`~repro_torch.kernels.mamba_scan.ref.selective_scan_bwd_ref`);
+    on CUDA tensors the kernel, which needs the forward's ``states``."""
+    B, S, di, n = _check(dt, a, b, c, x)
+    if dy.shape != x.shape or dy.dtype != torch.float32 or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous float32 {tuple(x.shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return selective_scan_bwd_ref(dt, a, b, c, x, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan_bwd runs on cpu or cuda, not {x.device}")
+    if n not in STATE_WIDTHS:
+        raise ValueError(f"d_state {n} has no kernel instantiation {STATE_WIDTHS}")
+    layout = bwd_layout(di, n)
+    want = (B, -(-S // layout["time_chunk"]), di, n)
+    if states is None or tuple(states.shape) != want or states.dtype != torch.float32 \
+            or states.device != x.device or not states.is_contiguous():
+        raise ValueError(f"the CUDA backward needs the forward's float32 states {want}")
+    lib = _bwd_library()
+    ddt, dx = torch.empty_like(x), torch.empty_like(x)
+    da_part = torch.empty((B, di, n), dtype=torch.float32, device=x.device)
+    db_part, dc_part = (
+        torch.empty((layout["slices"], B, S, n), dtype=torch.float32, device=x.device)
+        for _ in range(2)
+    )
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.selective_scan_bwd_f32(
+            *(t.data_ptr() for t in (dt, a, b, c, x, dy, states, ddt, dx, da_part, db_part,
+                                     dc_part)),
+            B, S, di, n, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_bwd launch failed: cudaError {rc}")
+    selective_scan_bwd.launches += 1
+    # the partials' sums, each in one fixed order
+    return ddt, da_part.sum(dim=0), db_part.sum(dim=0), dc_part.sum(dim=0), dx
+
+
+selective_scan_bwd.launches = 0

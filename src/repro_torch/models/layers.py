@@ -9,7 +9,8 @@ from torch import nn
 
 
 def weight(t: torch.Tensor) -> nn.Parameter:
-    """A model leaf: an inference-only parameter."""
+    """A model leaf: an inference-only parameter until
+    ``model.train_mode`` makes it trainable."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -72,8 +73,11 @@ def swiglu(
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` for integer ``tokens`` of any shape."""
-    return table.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, table.shape[1])
+    """Rows of ``table`` for integer ``tokens`` of any shape.  Its
+    gradient on a card sums repeated tokens' rows in a fixed order
+    (``F.embedding``'s sorted backward; ``index_select``'s adds them with
+    atomics), so a training step repeats bit for bit."""
+    return torch.nn.functional.embedding(tokens, table)
 
 
 def unembed(

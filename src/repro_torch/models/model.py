@@ -1,5 +1,5 @@
 """Model assembly (port of ``repro.models.model``): parameters, forward
-passes, prefill and decode steps.
+passes, the training loss, prefill and decode steps.
 
 The reference stacks its layers into groups of ``cfg.group_size`` (the
 period of the arch's layer pattern) and scans them; the port keeps a
@@ -20,6 +20,11 @@ mixed-precision policy: master parameters in ``param_dtype``, matmul
 weights cast to ``compute_dtype`` at the step boundary
 (:func:`cast_for_compute`), norm scales, SSM dynamics and router kept in
 float32.
+
+Leaves are inference-only parameters (``requires_grad=False``) until
+:func:`train_mode` makes the floating ones trainable; the compute cast is
+then differentiable, so gradients reach the float32 master leaves, and
+:func:`loss_fn` is the reference's training loss.
 """
 
 from __future__ import annotations
@@ -131,8 +136,21 @@ def cast_for_compute(cfg: ModelConfig, params: LM) -> LM:
     """The parameters as the step computes with them: every floating leaf
     but the norm scales and ``_KEEP_F32_KEYS`` in ``compute_dtype``.
     Returns ``params`` itself when nothing needs a cast; otherwise a new
-    :class:`LM` that shares the leaves already in the right dtype."""
+    :class:`LM` that shares the leaves already in the right dtype.
+
+    Inference (autograd off, or no leaf requiring a gradient) casts
+    detached copies into new inference-only leaves, as serving always
+    has.  Training (autograd on and a trainable leaf, :func:`train_mode`)
+    takes the differentiable path instead: the casts stay in the autograd
+    graph, so the gradients reach the master leaves in their own dtype."""
     compute = torch_dtype(cfg.compute_dtype)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        leaves = {
+            name: p.to(compute)
+            for name, p in params.named_parameters()
+            if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute)
+        }
+        return _with_leaves(params, leaves) if leaves else params
     memo, changed = {}, False
     for name, p in params.named_parameters():
         if _keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute:
@@ -141,6 +159,28 @@ def cast_for_compute(cfg: ModelConfig, params: LM) -> LM:
             memo[id(p)] = weight(p.detach().to(compute))
             changed = True
     return copy.deepcopy(params, memo) if changed else params
+
+
+def _with_leaves(module: nn.Module, leaves: dict[str, torch.Tensor], prefix: str = ""):
+    """A shallow copy of ``module``'s tree whose parameters are
+    ``leaves[name]`` (any tensor, an autograd graph's output included),
+    the rest shared; nothing is detached or copied."""
+    clone = copy.copy(module)
+    clone._parameters = {k: leaves.get(prefix + k, v) for k, v in module._parameters.items()}
+    clone._modules = {
+        k: None if m is None else _with_leaves(m, leaves, f"{prefix}{k}.")
+        for k, m in module._modules.items()
+    }
+    return clone
+
+
+def train_mode(params: LM) -> LM:
+    """Make every floating leaf of ``params`` trainable (in place);
+    returns ``params``."""
+    for p in params.parameters():
+        if p.dtype.is_floating_point:
+            p.requires_grad_(True)
+    return params
 
 
 def init_params(
@@ -255,6 +295,27 @@ def forward(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, to
     params = _step_params(cfg, params)
     x, aux = _hidden(cfg, params, batch["tokens"])
     return _unembed(cfg, params, x), aux
+
+
+def loss_fn(
+    cfg: ModelConfig, params: LM, batch: dict, *, z_loss: float = 1e-4, aux_weight: float = 1e-2
+) -> tuple[torch.Tensor, dict]:
+    """The reference's training loss: mean next-token NLL over
+    ``batch["labels"]`` with the padded vocabulary masked out of the
+    float32 softmax, plus ``z_loss * mean(lse**2)`` and ``aux_weight *
+    aux`` (the MoE balance loss).  Returns ``(total, {"nll", "aux",
+    "lse"})``, ``lse`` the mean log-sum-exp.  A ViT-patch frontend raises
+    through :func:`check_supported`, as the forward does."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    logits = logits.float()
+    vocab_ok = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+    logits = torch.where(vocab_ok, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - true_logit).mean()
+    total = nll + z_loss * (lse**2).mean() + aux_weight * aux
+    return total, {"nll": nll, "aux": aux, "lse": lse.mean()}
 
 
 def prefill(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:

@@ -2,7 +2,12 @@
 clipping (port of ``repro.optim.adamw``).
 
 Plain functions over parameter trees (dicts, lists or tuples of tensors),
-so the placement search and a training step share them.  The arithmetic
+so the placement search and a training step share them.  A language
+model's tree is ``launch.steps.param_tree``: its leaves keyed by the parts
+of their names, so :func:`_decay_mask` reads the reference's leaf names
+(``wq``, ``norm1``, ``dt_bias``, ...).  The training step updates in place
+(:func:`update_`, :func:`clip_by_global_norm_`): the same arithmetic leaf
+by leaf, without a second copy of parameters, gradients and moments.  The arithmetic
 follows the reference's float32 order: the bias corrections
 ``1 - b ** step`` in float32, then ``(m / c1) / (sqrt(v / c2) + eps)``,
 decay added to the step and ``p - lr * step`` last.  ``torch.optim.AdamW``
@@ -74,13 +79,27 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    one = torch.ones((), dtype=_F32, device=norm.device)
+    return torch.minimum(one, max_norm / torch.maximum(norm, torch.full_like(norm, 1e-9)))
+
+
 def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
     """Scale ``grads`` so their global norm is at most ``max_norm``;
     returns the scaled tree and the norm before scaling."""
     norm = global_norm(grads)
-    one = torch.ones((), dtype=_F32, device=norm.device)
-    scale = torch.minimum(one, max_norm / torch.maximum(norm, torch.full_like(norm, 1e-9)))
+    scale = _clip_scale(norm, max_norm)
     return _map(lambda _, g: (g.to(_F32) * scale).to(g.dtype), grads), norm
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Any, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm` in place: scales each leaf of ``grads``
+    and returns the norm before scaling."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    _map(lambda _, g: g.copy_((g.to(_F32) * scale).to(g.dtype)), grads)
+    return norm
 
 
 def _decay_mask(path) -> bool:
@@ -102,6 +121,46 @@ def update(
     weight_decay: float = 0.1,
 ) -> tuple[Any, AdamWState]:
     """One AdamW step; returns the new parameters and state."""
+    step, upd = _stepper(state, lr, b1, b2, eps, weight_decay)
+    done: dict[tuple, tuple] = {}
+    _map(lambda path, *leaves: done.setdefault(path, upd(path, *leaves)),
+         params, grads, state.m, state.v)
+    new_params, new_m, new_v = (
+        _map(lambda path, _: done[path][i], params) for i in range(3)
+    )
+    return new_params, AdamWState(step=step, m=new_m, v=new_v)
+
+
+@torch.no_grad()
+def update_(
+    grads: Any,
+    state: AdamWState,
+    params: Any,
+    *,
+    lr,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> AdamWState:
+    """:func:`update` in place: the same arithmetic, written into
+    ``params``' and the state's moment tensors one leaf at a time; returns
+    the state with its step advanced (its ``m`` and ``v`` trees are the
+    ones passed in)."""
+    step, upd = _stepper(state, lr, b1, b2, eps, weight_decay)
+
+    def write(path, p, g, m, v):
+        for dst, src in zip((p, m, v), upd(path, p, g, m, v)):
+            if src is not dst:
+                dst.copy_(src)
+
+    _map(write, params, grads, state.m, state.v)
+    return AdamWState(step=step, m=state.m, v=state.v)
+
+
+def _stepper(state: AdamWState, lr, b1, b2, eps, weight_decay):
+    """The next step count and the per-leaf update ``(path, p, g, m, v) ->
+    (new p, new m, new v)`` at it."""
     step = state.step + 1
     s32 = step.to(_F32)
     # torch.full, not torch.tensor: a host scalar copied to the card would
@@ -121,13 +180,7 @@ def update(
         new_p = (p.to(_F32) - lr * u).to(p.dtype)
         return new_p, m32.to(m.dtype), v32.to(v.dtype)
 
-    done: dict[tuple, tuple] = {}
-    _map(lambda path, *leaves: done.setdefault(path, upd(path, *leaves)),
-         params, grads, state.m, state.v)
-    new_params, new_m, new_v = (
-        _map(lambda path, _: done[path][i], params) for i in range(3)
-    )
-    return new_params, AdamWState(step=step, m=new_m, v=new_v)
+    return step, upd
 
 
 def cosine_schedule(

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA selective-scan and flash-attention
-kernels against their plain versions, and the sweep, the placement
+kernels, forward and backward, against their plain versions, a training
+step of the reduced LMs on the card against the CPU, and the sweep, the placement
 search, the scheduler, the service's tiers, the reduced LMs' prefill
 (attention, mamba and MoE layers), the mamba decode step, the MoE
 dispatch, the calibration's paired batch, loss gradient and fit, and a
@@ -595,3 +596,168 @@ def test_swap_on_the_card_matches_cpu(cuda):
     for g, c in zip(card, cpu):
         assert g.epoch == 1 and g.fidelity == "exact"
         assert g.objective == pytest.approx(c.objective, rel=1e-4)
+
+
+
+# ---- backward kernels ---------------------------------------------------------
+
+FLASH_BWD_CASES = [
+    # B, H, Kv, Sq, Skv, dh, options: every HEAD_DIMS value, ragged sizes,
+    # GQA 1:1 to 8:1, Skv > Sq and Sq > Skv (rows that see no key)
+    (1, 4, 4, 77, 77, 16, {}),
+    (2, 4, 2, 130, 130, 32, dict(window=40)),
+    (1, 8, 2, 200, 200, 64, dict(logit_cap=5.0)),
+    (1, 4, 1, 150, 150, 80, dict(window=64)),
+    (1, 8, 1, 96, 96, 128, {}),
+    (1, 2, 1, 100, 100, 256, dict(window=50, logit_cap=3.0)),
+    (1, 4, 2, 60, 100, 64, {}),
+    (1, 4, 2, 40, 40, 32, dict(causal=False)),
+    (1, 2, 2, 100, 60, 32, {}),
+]
+# each gradient within this share of its largest magnitude: float32
+# products in both, bf16 outputs rounded once
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_to_scale(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, kwargs):
+    """dq, dk and dv from the forward's log-sum-exp, against the plain
+    backward; two calls give equal bits (no atomics); rows that see no
+    key get zero dq."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    q, k, v = _qkv(6, B, H, Kv, Sq, Skv, dh, dtype, cuda, qk_std=1.0)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+    lse = torch.empty((B, H, Sq), device=cuda)
+    out = flash_kernel.flash_attention(q, k, v, lse=lse, **kwargs)
+    before = flash_kernel.flash_attention_bwd.launches
+    first = flash_kernel.flash_attention_bwd(q, k, v, out, dout, lse, **kwargs)
+    second = flash_kernel.flash_attention_bwd(q, k, v, out, dout, lse, **kwargs)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_bwd.launches == before + 2
+    want = attention_bwd_ref(q, k, v, dout, **kwargs)
+    for name, g, w, g2 in zip("qkv", first, want, second):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _rel_to_scale(g, w) <= FLASH_BWD_TOL[dtype], name
+        assert torch.equal(g, g2), name
+    if Sq > Skv:
+        assert not first[0][:, :, : Sq - Skv].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_flash_gradients_on_the_card_match_cpu(cuda, dtype):
+    """Through autograd in the model's layout, GQA 4:1 with a window."""
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in _qkv(7, 2, 8, 2, 96, 96, 64, dtype, cuda, qk_std=1.0))
+    grads = []
+    for dev in (cuda, "cpu"):
+        leaves = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
+        mha_flash(*leaves, causal=True, window=40).float().square().sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, w in zip(*grads):
+        assert _rel_to_scale(g, w) <= FLASH_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,S,di,n", SHAPES)
+def test_scan_backward_kernel_matches_plain_version(cuda, B, S, di, n):
+    """ddt, dA, dB, dC and dx from the forward's saved chunk states, at
+    rel 1e-4 of each gradient's scale; one launch a call; two calls give
+    equal bits (the channel sums run in a fixed order)."""
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+
+    dt, a, b, c, x = _inputs(5, B, S, di, n, cuda)
+    dy = _inputs(6, B, S, di, n, cuda)[4]
+    y, states = scan_kernel.selective_scan(dt, a, b, c, x, save_states=True)
+    torch.testing.assert_close(y, scan_kernel.selective_scan(dt, a, b, c, x), rtol=0, atol=0)
+    before = scan_kernel.selective_scan_bwd.launches
+    first = scan_kernel.selective_scan_bwd(dt, a, b, c, x, dy, states)
+    second = scan_kernel.selective_scan_bwd(dt, a, b, c, x, dy, states)
+    torch.cuda.synchronize()
+    assert scan_kernel.selective_scan_bwd.launches == before + 2
+    want = selective_scan_bwd_ref(dt, a, b, c, x, dy)
+    for name, g, w, g2 in zip(("ddt", "da", "db", "dc", "dx"), first, want, second):
+        assert g.shape == w.shape, name
+        assert _rel_to_scale(g, w) <= 1e-4, name
+        assert torch.equal(g, g2), name
+
+
+def test_scan_backward_kernel_reads_unaligned_views(cuda):
+    """dt, x, dy, B and C starting 4 bytes into their storage take the
+    4-byte copies, as the forward does."""
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+
+    B, S, di, n = 2, 100, 64, 16
+    arrays = _inputs(7, B, S, di, n, cuda)
+    dy = _inputs(8, B, S, di, n, cuda)[4]
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        return view.copy_(t)
+
+    dt, a, b, c, x = (shifted(t) for t in arrays)
+    dys = shifted(dy)
+    assert dt.data_ptr() % 16 != 0 and dys.data_ptr() % 16 != 0
+    _, states = scan_kernel.selective_scan(*arrays, save_states=True)
+    got = scan_kernel.selective_scan_bwd(dt, a, b, c, x, dys, states)
+    want = selective_scan_bwd_ref(*arrays, dy)
+    for g, w in zip(got, want):
+        assert _rel_to_scale(g, w) <= 1e-4
+
+
+def test_backward_kernels_need_the_forward_residuals(cuda):
+    """No quiet recomputation: the CUDA backwards raise without the
+    forward's log-sum-exp or states."""
+    q, k, v = _qkv(9, 1, 2, 1, 32, 32, 32, torch.float32, cuda)
+    out = flash_kernel.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        flash_kernel.flash_attention_bwd(q, k, v, out, out, None)
+    dt, a, b, c, x = _inputs(9, 1, 32, 16, 8, cuda)
+    with pytest.raises(ValueError, match="states"):
+        scan_kernel.selective_scan_bwd(dt, a, b, c, x, x, None)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "gemma2-9b", "falcon-mamba-7b",
+                                  "qwen3-moe-30b-a3b"])
+def test_reduced_train_step_on_the_card_matches_cpu(cuda, name):
+    """One float32 train step with the same weights and batch: loss within
+    rel 1e-4, gradient norm within rel 1e-3; K1 forward and backward once
+    per attention layer, K2 once per mamba layer."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config(name).reduced(), compute_dtype="float32")
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 41)),
+                             dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    kinds = [M.slot_kinds(cfg, i % cfg.group_size)[0] for i in range(cfg.n_layers)]
+    results = {}
+    for dev in ("cpu", cuda):
+        params = M.train_mode(M.init_params(cfg, torch.Generator().manual_seed(0),
+                                            device="cpu").to(dev))
+        opt = adamw.init(steps.param_tree(params), cfg.moment_dtype)
+        step = steps.make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-3, 0, 10))
+        counts = [flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches,
+                  scan_kernel.selective_scan.launches, scan_kernel.selective_scan_bwd.launches]
+        _, _, metrics = step(params, opt, {k: v.to(dev) for k, v in batch.items()}, 0)
+        torch.cuda.synchronize()
+        after = [flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches,
+                 scan_kernel.selective_scan.launches, scan_kernel.selective_scan_bwd.launches]
+        results[str(dev)] = (metrics, [b - a for a, b in zip(counts, after)])
+    (cpu_m, cpu_counts), (card_m, card_counts) = results["cpu"], results[str(cuda)]
+    assert cpu_counts == [0, 0, 0, 0]
+    assert card_counts == [kinds.count("attn")] * 2 + [kinds.count("mamba")] * 2
+    assert abs(float(card_m["loss"]) - float(cpu_m["loss"])) <= 1e-4 * abs(float(cpu_m["loss"]))
+    assert abs(float(card_m["grad_norm"]) - float(cpu_m["grad_norm"])) <= \
+        1e-3 * float(cpu_m["grad_norm"])

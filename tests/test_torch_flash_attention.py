@@ -7,10 +7,15 @@ MQA with Skv > Sq, dh 128; float32 at 2e-5, bfloat16 at 2e-2; window 32
 and 64, soft-cap 30, non-causal), from numpy-seeded inputs, and
 ``mha_flash`` against the model's ``blocked_attention`` at 2e-4; plus
 dh 80 (h2o-danube-1.8b's) in the sweep, and every registered attention
-config's head dim among the kernels' ``HEAD_DIMS``.  The
-CUDA kernel itself is held against the plain version on the card by
-``tests/test_torch_cuda.py`` and by ``chip_smoke.py``."""
+config's head dim among the kernels' ``HEAD_DIMS``.  The plain backward
+(``attention_bwd_ref``, and ``mha_flash`` under autograd) is held at rel
+1e-4 of each gradient's scale against ``jax.grad`` of the reference's
+``attention_ref`` (GQA, window, soft-cap, non-causal, Skv > Sq, dh 80),
+whole and chunked over rows.  The CUDA kernels themselves are held against
+the plain versions on the card by ``tests/test_torch_cuda.py`` and by
+``chip_smoke.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +26,11 @@ from repro.kernels.flash_attention.kernel import flash_attention as ref_flash_at
 from repro.kernels.flash_attention.ref import attention_ref as ref_attention_ref
 from repro.models.attention import blocked_attention
 from repro_torch.kernels.flash_attention.ops import mha_flash
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 SWEEP = [
@@ -159,3 +168,89 @@ def test_wrapper_rejects_bad_inputs():
         port_kernel.flash_attention(q, k, v, out=torch.empty(1, 4, 8, 16))
     with pytest.raises(ValueError):  # neither cpu nor cuda
         port_kernel.flash_attention(*(t.to("meta") for t in (q, k, v)))
+
+
+BWD_CASES = [
+    # B, H, Kv, Sq, Skv, dh, options
+    (1, 4, 4, 48, 48, 16, dict(causal=True)),
+    (2, 8, 2, 40, 40, 32, dict(causal=True, window=12)),  # GQA 4:1
+    (1, 4, 2, 33, 33, 80, dict(causal=True, logit_cap=5.0)),  # danube's dh
+    (1, 4, 1, 24, 56, 32, dict(causal=True)),  # MQA, Skv > Sq
+    (1, 2, 2, 30, 30, 16, dict(causal=False, window=0, logit_cap=2.0)),
+    (1, 8, 1, 36, 36, 16, dict(causal=True, window=9, logit_cap=3.0)),  # GQA 8:1
+]
+
+
+def _ref_grads(arrays, dout, options):
+    """``jax.grad`` of the reference attention's ``sum(out * dout)``."""
+    def f(q, k, v):
+        return jnp.sum(ref_attention_ref(q, k, v, **options) * dout)
+
+    return jax.grad(f, argnums=(0, 1, 2))(*arrays)
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,options", BWD_CASES)
+def test_plain_backward_matches_jax_grad_of_reference(B, H, Kv, Sq, Skv, dh, options):
+    from _torch_parity import assert_rel_to_scale
+
+    arrays = _qkv(9, B, H, Kv, Sq, Skv, dh)
+    dout = np.random.default_rng(10).standard_normal((B, H, Sq, dh)).astype(np.float32)
+    want = _ref_grads(arrays, dout, options)
+    t = tuple(torch.as_tensor(a) for a in arrays)
+    for rows in (None, 7):
+        got = attention_bwd_ref(*t, torch.as_tensor(dout), rows=rows, **options)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == torch.float32
+            assert_rel_to_scale(g, w, rtol=1e-4, what=f"d{name} rows={rows}")
+    # the wrapper's CPU path and mha_flash under autograd, in the model layout
+    got = port_kernel.flash_attention_bwd(*t, attention_ref(*t, **options),
+                                          torch.as_tensor(dout), None, **options)
+    for g, w in zip(got, want):
+        assert_rel_to_scale(g, w, rtol=1e-4)
+    model = [x.transpose(1, 2).contiguous().requires_grad_() for x in t]
+    out = mha_flash(*model, **options)
+    out.backward(torch.as_tensor(dout).transpose(1, 2))
+    for x, w in zip(model, want):
+        assert_rel_to_scale(x.grad.transpose(1, 2), w, rtol=1e-4)
+
+
+def test_plain_lse_matches_reference_logsumexp():
+    arrays = _qkv(11, 1, 4, 2, 40, 40, 32)
+    options = dict(window=10, logit_cap=4.0)
+    got = attention_lse_ref(*(torch.as_tensor(a) for a in arrays[:2]), **options)
+    q, k = (jnp.asarray(a) for a in arrays[:2])
+    k = jnp.repeat(k, 2, axis=1)
+    s = jnp.einsum("bhqd,bhsd->bhqs", q, k) * 32**-0.5
+    s = 4.0 * jnp.tanh(s / 4.0)
+    pos = jnp.arange(40)
+    ok = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - 10)
+    want = jax.nn.logsumexp(jnp.where(ok, s, -1e30), axis=-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    lse = torch.empty((1, 4, 40))
+    port_kernel.flash_attention(*(torch.as_tensor(a) for a in arrays), lse=lse, **options)
+    torch.testing.assert_close(lse, got, rtol=0, atol=0)
+
+
+def test_rows_that_see_no_key_get_zero_gradients():
+    """Sq > Skv under the causal mask: the first Sq - Skv rows see no key;
+    their dq is exactly 0, they add nothing to dk or dv, and nothing is
+    NaN."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(12, 1, 2, 2, 20, 12, 16))
+    dout = torch.ones_like(q)
+    dq, dk, dv = attention_bwd_ref(q, k, v, dout)
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    assert not dq[:, :, :8].any()
+    _, dk_live, dv_live = attention_bwd_ref(q[:, :, 8:], k, v, dout[:, :, 8:])
+    torch.testing.assert_close(dk, dk_live, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(dv, dv_live, rtol=1e-6, atol=1e-7)
+
+
+def test_backward_wrapper_rejects_bad_inputs():
+    q, k, v = (torch.as_tensor(a) for a in _qkv(13, 1, 4, 2, 16, 16, 16))
+    out = attention_ref(q, k, v)
+    with pytest.raises(ValueError):  # dout of the wrong shape
+        port_kernel.flash_attention_bwd(q, k, v, out, out[:, :, :8], None)
+    with pytest.raises(ValueError):  # neither cpu nor cuda
+        port_kernel.flash_attention_bwd(*(t.to("meta") for t in (q, k, v, out, out)), None)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        port_kernel.flash_attention(q, k, v, lse=torch.empty(1, 4, 8))

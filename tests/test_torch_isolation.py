@@ -46,6 +46,10 @@ def test_every_module_imports_without_jax_or_repro():
         "repro_torch.core.numa.calibrate",
         "repro_torch.serve.faults",
         "repro_torch.serve.recalibrate",
+        "repro_torch.launch.train",
+        "repro_torch.data.pipeline",
+        "repro_torch.checkpoint.store",
+        "repro_torch.runtime.fault_tolerance",
     } <= set(modules)
     script = textwrap.dedent(
         f"""
@@ -111,6 +115,7 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     from repro_torch.core.numa.benchmarks import benchmark_workload
     from repro_torch.core.numa.evaluate import enumerate_placements, evaluate_suite
     from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import TokenStream, synthetic_batch
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
     from repro_torch.serve import AdvisorService
@@ -134,6 +139,8 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
         lambda: M.init_params(cfg, torch.Generator()),
         lambda: M.init_cache(cfg, 1, 8, torch.bfloat16),
         lambda: generate(cfg, cpu_params, prompts, 6, 2),
+        lambda: TokenStream(cfg, 8, 2),
+        lambda: synthetic_batch(cfg, 8, 2, torch.Generator()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -168,5 +175,11 @@ def test_advisor_cli_defaults_to_cuda(no_cuda):
 
 def test_serve_cli_defaults_to_cuda(no_cuda):
     proc = _cli_without_cuda("serve", ["--reduced", "--gen", "2"])
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_train_cli_defaults_to_cuda(no_cuda, tmp_path):
+    proc = _cli_without_cuda("train", ["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
