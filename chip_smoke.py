@@ -819,31 +819,34 @@ def phase_flash_attention_backward() -> dict:
 
 
 def scan_bwd_bytes(B: int, S: int, di: int, n: int) -> int:
-    """K2 backward's bytes: dt, x and dy read and ddt and dx written in
-    float32; B, C and A read; the forward's saved chunk states read; the
-    dA, dB and dC partials written."""
+    """The bytes K2's backward must move as a function: dt, x and dy read
+    and ddt and dx written (B, S, di); B and C read and dB and dC written
+    (B, S, N); A read and dA written (di, N); all float32."""
+    return 4 * (5 * B * S * di + 4 * B * S * n + 2 * di * n)
+
+
+def scan_bwd_design_bytes(B: int, S: int, di: int, n: int) -> int:
+    """The bytes this kernel's design adds to :func:`scan_bwd_bytes`: the
+    forward's saved chunk states read, and the per-row dA and per-slice
+    dB and dC partials written by the kernel and read back by the
+    wrapper's sums."""
     from repro_torch.kernels.mamba_scan.kernel import bwd_layout
 
     layout = bwd_layout(di, n)
     chunks = -(-S // layout["time_chunk"])
-    return 4 * (5 * B * S * di + 2 * B * S * n + di * n + B * chunks * di * n + B * di * n
-                + 2 * layout["slices"] * B * S * n)
-
-
-def scan_bwd_bytes_ms(B: int, S: int, di: int, n: int) -> float:
-    """K2 backward's bytes bound in ms."""
-    return scan_bwd_bytes(B, S, di, n) / HBM_BYTES_PER_S * 1e3
+    return 4 * (B * chunks * di * n + 2 * (B * di * n + 2 * layout["slices"] * B * S * n))
 
 
 def phase_selective_scan_backward() -> dict:
     """K2's backward kernel against its plain backward (the reverse
     recurrence, ``selective_scan_bwd_ref``) at each of ``SCAN_SHAPES``, in
     float32: every gradient within rel 1e-4 of its scale, two calls equal
-    bit for bit.  Its time stands beside its bytes bound (dt, x and dy
-    read, ddt and dx written, B, C, the saved chunk states read and the dA,
-    dB and dC partials written), its operations bound and the exp pipe's
-    floor (two exponentials per (b, t, d, n)).  Returns the first shape's
-    numbers for the kernels line."""
+    bit for bit.  Its time (the wrapper's call: the kernel and the
+    partials' sums) stands beside its bytes bound (the function's inputs
+    and outputs, :func:`scan_bwd_bytes`), its operations bound and the exp
+    pipe's floor (two exponentials per (b, t, d, n)); the traffic its
+    design adds (saved states, partials) is printed beside them.  Returns
+    the first shape's numbers for the kernels line."""
     from repro_torch.kernels.mamba_scan.kernel import bwd_layout, selective_scan, selective_scan_bwd
     from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
 
@@ -876,6 +879,7 @@ def phase_selective_scan_backward() -> dict:
         layout = bwd_layout(di, n)
         elems = B * S * di
         moved_bytes = scan_bwd_bytes(B, S, di, n)
+        design_bytes = scan_bwd_design_bytes(B, S, di, n)
         # per (b, t, d, n): 4 in the recomputed forward step, 22 in the
         # reverse step (two exponentials counted as operations too)
         ops = 26 * elems * n
@@ -911,6 +915,8 @@ def phase_selective_scan_backward() -> dict:
             bytes_bound_ms=bytes_ms,
             ops_bound_ms=ops_ms,
             exp_floor_ms=exp_ms,
+            design_bytes=design_bytes,
+            design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
             kernel_gb_per_s=moved_bytes / kernel_ms / 1e6,
             share_of_bound=bound_ms / kernel_ms,
         )
@@ -2248,6 +2254,20 @@ def phase_lm_reduced_train() -> None:
         check(norm_gap <= 1e-3, f"{name}: card gradient norm differs from the CPU by rel {norm_gap}")
 
 
+def first_step_drop(opt, metrics, b1: float = 0.9, max_norm: float = 1.0) -> dict:
+    """What AdamW's first step predicts for the loss.  That step moves
+    every coordinate by about ``lr`` whatever its gradient's size (``m /
+    sqrt(v)`` is ``g / |g|``), so the loss's first-order change is ``lr``
+    times the gradient's L1 norm, read here from the moments after the
+    step (``m = (1 - b1) * g``, with the clipping undone)."""
+    from repro_torch.optim import adamw
+
+    l1 = sum(float(m.abs().sum(dtype=torch.float64)) for m in adamw._leaves(opt.m))
+    norm, lr = float(metrics["grad_norm"]), float(metrics["lr"])
+    grad_l1 = l1 / (1 - b1) * max(norm / max_norm, 1.0)
+    return dict(lr=lr, grad_norm=norm, grad_l1=grad_l1, first_order_drop=lr * grad_l1)
+
+
 def train_step_ops(cfg, B: int, S: int) -> float:
     """Operations of one training step: the forward's matrix products
     (every layer weight and the lm_head once per token) times three for
@@ -2297,6 +2317,7 @@ def phase_lm_danube_train() -> int:
 
     # the main path's run: the first step
     (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    first = first_step_drop(opt, metrics)
     losses, walls = [float(metrics["loss"])], []
     for s in range(1, n_steps):
         t0 = time.perf_counter()
@@ -2358,6 +2379,7 @@ def phase_lm_danube_train() -> int:
         moment_dtype=cfg.moment_dtype,
         launches_per_step=counts,
         losses=losses,
+        first_step=dict(first, measured_drop=losses[0] - losses[1]),
         step_s_runs=walls,
         ms_per_step=ms_step,
         tokens_per_s=B * S / (ms_step / 1e3),
@@ -2404,14 +2426,20 @@ def phase_lm_falcon_mamba_train() -> int:
     left_gb = free_card()
     B, S, n_steps = 2, 2048, 4
     batch = TokenStream(cfg, S, B, seed=2, device="cuda").batch_at(0)
-    # Adam's first step is a sign step (the gradient clipped to norm 1): its
-    # first-order loss change is about lr * sqrt(1.4e9) nats, so 1e-3 and
-    # 3e-4 overshot on an H100 (11.90, 5.58, 11.63, 9.13 and 11.90, 0.05,
-    # 9.93, 1.43); 1e-5 moves it about 0.4 nats a step
+    # Adam's first step moves every weight by about lr whatever its
+    # gradient, so the loss's first-order change is lr times the gradient's
+    # L1 norm (``first_step`` prints both).  On an H100 that norm was of
+    # one size for both models (about 1.5e5 here, 8.2e4 for danube), so at
+    # danube's 1e-3 either step is 80-150 nats by first order: far past
+    # where the gradient predicts the loss.  danube's loss still fell
+    # there; falcon's swung between 0.05 and 11.9 (at 1e-3 and 3e-4).  At
+    # 1e-5 the first step is 1.5 nats and the loss falls by what the
+    # gradient predicts.
     step = make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-5, 0, n_steps))
     params, tree, opt = trainable(cfg, "cuda")
     count = sum(p.numel() for p in params.parameters())
     (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    first = first_step_drop(opt, metrics)
     losses, walls = [float(metrics["loss"])], []
     for s in range(1, n_steps):
         t0 = time.perf_counter()
@@ -2429,7 +2457,8 @@ def phase_lm_falcon_mamba_train() -> int:
     # least time: the matrix products at bf16 peak, plus each layer's scan
     # forward and backward at their bytes bounds
     scan_ms = cfg.n_layers * (scan_bytes_ms(B, S, cfg.d_inner, cfg.ssm_state)
-                              + scan_bwd_bytes_ms(B, S, cfg.d_inner, cfg.ssm_state))
+                              + scan_bwd_bytes(B, S, cfg.d_inner, cfg.ssm_state)
+                              / HBM_BYTES_PER_S * 1e3)
     bound_ms = train_step_ops(cfg, B, S) / BF16_OPS_PER_S * 1e3 + scan_ms
     emit(
         "lm_falcon_mamba_train",
@@ -2441,6 +2470,7 @@ def phase_lm_falcon_mamba_train() -> int:
         batch=B, seq=S,
         launches_per_step=counts,
         losses=losses,
+        first_step=dict(first, measured_drop=losses[0] - losses[1]),
         step_s_runs=walls,
         ms_per_step=ms_step,
         tokens_per_s=B * S / (ms_step / 1e3),

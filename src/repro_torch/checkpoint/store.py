@@ -14,8 +14,9 @@ package restores in the other.
 * Commits are atomic: everything is written into a uniquely named
   ``step_XXXX.tmp-*`` directory, renamed only after the manifest lands.  A
   crashed writer leaves a ``.tmp`` that :func:`latest_step` ignores.
-* :class:`AsyncCheckpointer` copies the tree to the host on the caller and
-  writes it on a background thread, one save in flight.
+* :class:`AsyncCheckpointer` copies the tree to the host on the caller
+  (a copy even of host tensors, which the caller may then update in
+  place) and writes it on a background thread, one save in flight.
 
 Trees are nested dicts, lists, tuples and named tuples of tensors, numpy
 arrays or Python scalars; ``None`` holds no leaf.
@@ -102,7 +103,9 @@ class _Host:
 
     def __init__(self, leaf: Any):
         if isinstance(leaf, torch.Tensor):
-            t = leaf.detach().cpu()
+            # a copy even from host memory: the caller may update the leaf
+            # in place while a background thread writes this one
+            t = leaf.detach().to("cpu", copy=True)
             if t.dtype == torch.bfloat16:
                 self.arr, self.dtype = t.view(torch.uint16).numpy(), "bfloat16"
             else:

@@ -676,7 +676,7 @@ _PARAM_KEYS = tuple(sorted(CalibrationParams._fields))  # JAX's dict flattening 
 
 def _fit_step(template, groups, sweep, p, state, lr, instruction_weight, huber_delta):
     """One AdamW step over the prepared sweep from the parameter dict
-    ``p``: ``(loss at p, updated p, updated state)``."""
+    ``p``, updated in place: ``(loss at p, p, updated state)``."""
     leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
     loss = _loss_on(
         template, groups, sweep, CalibrationParams(**leaves), instruction_weight, huber_delta
@@ -687,10 +687,7 @@ def _fit_step(template, groups, sweep, p, state, lr, instruction_weight, huber_d
         k: torch.zeros_like(leaves[k]) if g is None else g
         for k, g in zip(_PARAM_KEYS, grads)
     }
-    with torch.no_grad():
-        p, state = adamw.update(
-            grads, state, {k: v.detach() for k, v in leaves.items()}, lr=lr, weight_decay=0.0
-        )
+    state = adamw.update_(grads, state, p, lr=lr, weight_decay=0.0)
     return loss.detach(), p, state
 
 
@@ -701,7 +698,7 @@ def _fit_loop(template, groups, sweep, params, steps, lr, instruction_weight, hu
     schedule = adamw.cosine_schedule(
         lr, warmup_steps=min(20, max(steps // 10, 1)), total_steps=steps
     )
-    p = {k: getattr(params, k).detach() for k in _PARAM_KEYS}
+    p = {k: getattr(params, k).detach().clone() for k in _PARAM_KEYS}  # updated in place
     state = adamw.init(p)
     history = []
     for _ in range(steps):

@@ -253,7 +253,7 @@ def _ascend_starts(
     relaxed = _relaxed_setup(machine, workload, classes)
     scale = n * relaxed.node_rates.max()
     zero = torch.zeros((), dtype=_F32, device=dev)
-    params = {"logits": torch.as_tensor(logits0, device=dev)}
+    params = {"logits": torch.tensor(logits0, device=dev)}  # updated in place
     state = adamw.init(params)
     with torch.enable_grad():
         for _ in range(steps):
@@ -266,11 +266,8 @@ def _ascend_starts(
             # the relaxed fill is only piecewise smooth: a start whose
             # cotangents are not finite gets them zeroed, not the batch
             grad = torch.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
-            params, state = adamw.update(
-                {"logits": grad}, state, {"logits": params["logits"].detach()},
-                lr=lr, weight_decay=0.0,
-            )
-    return n * torch.softmax(params["logits"].detach(), dim=-1)
+            state = adamw.update_({"logits": grad}, state, params, lr=lr, weight_decay=0.0)
+    return n * torch.softmax(params["logits"], dim=-1)
 
 
 def _round_capped(p_cont: np.ndarray, n: int, cap: int) -> np.ndarray:

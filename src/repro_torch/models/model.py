@@ -141,24 +141,16 @@ def cast_for_compute(cfg: ModelConfig, params: LM) -> LM:
     Inference (autograd off, or no leaf requiring a gradient) casts
     detached copies into new inference-only leaves, as serving always
     has.  Training (autograd on and a trainable leaf, :func:`train_mode`)
-    takes the differentiable path instead: the casts stay in the autograd
-    graph, so the gradients reach the master leaves in their own dtype."""
+    keeps the casts in the autograd graph instead, so the gradients reach
+    the master leaves in their own dtype."""
     compute = torch_dtype(cfg.compute_dtype)
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
-        leaves = {
-            name: p.to(compute)
-            for name, p in params.named_parameters()
-            if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute)
-        }
-        return _with_leaves(params, leaves) if leaves else params
-    memo, changed = {}, False
-    for name, p in params.named_parameters():
-        if _keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute:
-            memo[id(p)] = p
-        else:
-            memo[id(p)] = weight(p.detach().to(compute))
-            changed = True
-    return copy.deepcopy(params, memo) if changed else params
+    train = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+    leaves = {
+        name: p.to(compute) if train else weight(p.detach().to(compute))
+        for name, p in params.named_parameters()
+        if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute)
+    }
+    return _with_leaves(params, leaves) if leaves else params
 
 
 def _with_leaves(module: nn.Module, leaves: dict[str, torch.Tensor], prefix: str = ""):

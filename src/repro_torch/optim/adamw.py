@@ -2,12 +2,12 @@
 clipping (port of ``repro.optim.adamw``).
 
 Plain functions over parameter trees (dicts, lists or tuples of tensors),
-so the placement search and a training step share them.  A language
-model's tree is ``launch.steps.param_tree``: its leaves keyed by the parts
-of their names, so :func:`_decay_mask` reads the reference's leaf names
-(``wq``, ``norm1``, ``dt_bias``, ...).  The training step updates in place
-(:func:`update_`, :func:`clip_by_global_norm_`): the same arithmetic leaf
-by leaf, without a second copy of parameters, gradients and moments.  The arithmetic
+so the placement search, the calibration fit and a training step share
+them.  A language model's tree is ``launch.steps.param_tree``: its leaves
+keyed by the parts of their names, so :func:`_decay_mask` reads the
+reference's leaf names (``wq``, ``norm1``, ``dt_bias``, ...).  Where the
+reference returns new trees, :func:`update_` and
+:func:`clip_by_global_norm_` write into the ones they are given.  The arithmetic
 follows the reference's float32 order: the bias corrections
 ``1 - b ** step`` in float32, then ``(m / c1) / (sqrt(v / c2) + eps)``,
 decay added to the step and ``p - lr * step`` last.  ``torch.optim.AdamW``
@@ -79,25 +79,13 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
-    one = torch.ones((), dtype=_F32, device=norm.device)
-    return torch.minimum(one, max_norm / torch.maximum(norm, torch.full_like(norm, 1e-9)))
-
-
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
-    """Scale ``grads`` so their global norm is at most ``max_norm``;
-    returns the scaled tree and the norm before scaling."""
-    norm = global_norm(grads)
-    scale = _clip_scale(norm, max_norm)
-    return _map(lambda _, g: (g.to(_F32) * scale).to(g.dtype), grads), norm
-
-
 @torch.no_grad()
 def clip_by_global_norm_(grads: Any, max_norm: float) -> torch.Tensor:
-    """:func:`clip_by_global_norm` in place: scales each leaf of ``grads``
-    and returns the norm before scaling."""
+    """Scale each leaf of ``grads`` in place so their global norm is at
+    most ``max_norm``; returns the norm before scaling."""
     norm = global_norm(grads)
-    scale = _clip_scale(norm, max_norm)
+    one = torch.ones((), dtype=_F32, device=norm.device)
+    scale = torch.minimum(one, max_norm / torch.maximum(norm, torch.full_like(norm, 1e-9)))
     _map(lambda _, g: g.copy_((g.to(_F32) * scale).to(g.dtype)), grads)
     return norm
 
@@ -107,28 +95,6 @@ def _decay_mask(path) -> bool:
     keyed on the leaf's name."""
     name = str(path[-1])
     return "norm" not in name and name not in ("dt_bias", "conv_b", "D", "A_log")
-
-
-def update(
-    grads: Any,
-    state: AdamWState,
-    params: Any,
-    *,
-    lr,
-    b1: float = 0.9,
-    b2: float = 0.95,
-    eps: float = 1e-8,
-    weight_decay: float = 0.1,
-) -> tuple[Any, AdamWState]:
-    """One AdamW step; returns the new parameters and state."""
-    step, upd = _stepper(state, lr, b1, b2, eps, weight_decay)
-    done: dict[tuple, tuple] = {}
-    _map(lambda path, *leaves: done.setdefault(path, upd(path, *leaves)),
-         params, grads, state.m, state.v)
-    new_params, new_m, new_v = (
-        _map(lambda path, _: done[path][i], params) for i in range(3)
-    )
-    return new_params, AdamWState(step=step, m=new_m, v=new_v)
 
 
 @torch.no_grad()
@@ -143,24 +109,11 @@ def update_(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
 ) -> AdamWState:
-    """:func:`update` in place: the same arithmetic, written into
-    ``params``' and the state's moment tensors one leaf at a time; returns
-    the state with its step advanced (its ``m`` and ``v`` trees are the
-    ones passed in)."""
-    step, upd = _stepper(state, lr, b1, b2, eps, weight_decay)
-
-    def write(path, p, g, m, v):
-        for dst, src in zip((p, m, v), upd(path, p, g, m, v)):
-            if src is not dst:
-                dst.copy_(src)
-
-    _map(write, params, grads, state.m, state.v)
-    return AdamWState(step=step, m=state.m, v=state.v)
-
-
-def _stepper(state: AdamWState, lr, b1, b2, eps, weight_decay):
-    """The next step count and the per-leaf update ``(path, p, g, m, v) ->
-    (new p, new m, new v)`` at it."""
+    """One AdamW step in place: the new parameters and moments are written
+    into ``params``' and the state's tensors one leaf at a time, so no
+    second copy of parameters, gradients and moments is held; returns the
+    state with its step advanced (its ``m`` and ``v`` trees are the ones
+    passed in)."""
     step = state.step + 1
     s32 = step.to(_F32)
     # torch.full, not torch.tensor: a host scalar copied to the card would
@@ -168,19 +121,21 @@ def _stepper(state: AdamWState, lr, b1, b2, eps, weight_decay):
     c1 = 1.0 - torch.pow(torch.full((), b1, dtype=_F32, device=s32.device), s32)
     c2 = 1.0 - torch.pow(torch.full((), b2, dtype=_F32, device=s32.device), s32)
 
-    def upd(path, p, g, m, v):
+    def write(path, p, g, m, v):
         if not p.is_floating_point():
-            return p, m, v
+            return
         g32 = g.to(_F32)
         m32 = m.to(_F32) * b1 + g32 * (1 - b1)
         v32 = v.to(_F32) * b2 + g32 * g32 * (1 - b2)
         u = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
         if _decay_mask(path):
             u = u + weight_decay * p.to(_F32)
-        new_p = (p.to(_F32) - lr * u).to(p.dtype)
-        return new_p, m32.to(m.dtype), v32.to(v.dtype)
+        p.copy_(p.to(_F32) - lr * u)
+        m.copy_(m32)
+        v.copy_(v32)
 
-    return step, upd
+    _map(write, params, grads, state.m, state.v)
+    return AdamWState(step=step, m=state.m, v=state.v)
 
 
 def cosine_schedule(

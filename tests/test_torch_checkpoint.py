@@ -162,6 +162,28 @@ def test_async_checkpointer(tmp_path):
     assert ref_store.latest_step(tmp_path) == 6
 
 
+def test_async_checkpointer_holds_the_tree_as_saved(tmp_path, monkeypatch):
+    """A host tree updated in place right after ``save`` (as a train step
+    updates its parameters and moments) is written as it was at the call:
+    the writer is held back until the update is done."""
+    go, write = __import__("threading").Event(), store.save
+    monkeypatch.setattr(store, "save", lambda *a, **k: (go.wait(10), write(*a, **k))[1])
+    a = _arrays()
+    # both trees may share a's memory: the reference's reads a copy
+    tree, ref = _port_tree(a), _ref_tree({k: np.copy(v) for k, v in a.items()})
+    want = store._rebuild(tree, torch.clone)
+    ck = store.AsyncCheckpointer(tmp_path)
+    ck.save(3, tree)
+    with torch.no_grad():
+        for leaf in _leaves(tree):
+            leaf.add_(1)
+    go.set()
+    ck.wait()
+    _assert_same(store.restore(tmp_path, 3, tree), ref)
+    for got, saved in zip(_leaves(store.restore(tmp_path, 3, tree)), _leaves(want)):
+        assert torch.equal(got, saved)
+
+
 def test_straggler_monitor_flags_outliers():
     mon = StragglerMonitor(threshold=2.0)
     for s in range(10):
