@@ -6,11 +6,12 @@ Builds the port's CUDA kernels from the sources in this checkout and
 drives the port's paths on ``cuda`` in phases, one JSON line each:
 
 1. device — the card, its power limit and the float32 matmul settings;
-2. build — nvcc of every kernel source, K1's and K2's backward included
-   (all started together), with each
-   library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2) instructions
-   counted in its SASS, and each kernel's registers, shared memory and
-   spills as ptxas reports them;
+2. build — nvcc of every kernel source, K1's two backward sources (bf16
+   and float32) and K2's backward included (all started together), with
+   each library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2)
+   instructions counted in its SASS (both bf16 K1 libraries must hold
+   HGMMA), and each kernel's registers, shared memory and spills as ptxas
+   reports them;
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
    width (B=2, S=2048, d_inner=8192, N=16) and at a long prompt of one
    sequence (B=1, S=8192), each held against the plain version, with its
@@ -23,14 +24,17 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    window 4096) and qwen3-moe-30b-a3b's (B=2, H=32, Kv=4, S=2048,
    dh=128: GQA 8:1) in bf16, with its time, its bound and PyTorch's SDPA
    beside it;
-   flash_attention_backward — K1's backward kernel against its plain
+   flash_attention_backward — K1's backward kernels (bf16 on the tensor
+   cores, float32 on CUDA cores) against the plain
    backward at llama3-8b's shape (bf16 and float32), h2o-danube-1.8b's
    training micro-batch (B=2 x 2,048) and long row (B=1 x 8,192, window
    4,096), gemma2-9b's (dh 256, window, soft-cap 50) and qwen3-moe-30b-a3b's
    (GQA 8:1): float32 within rel 1e-4, bf16 2e-2 of each gradient's scale,
    two calls bit-equal, and dropping the window, the soft-cap or the GQA
    group sum moving the plain gradient past that; its time beside 2.5
-   times the forward's operations bound, the plain backward's and SDPA's;
+   times the forward's operations bound, the plain backward's, SDPA's and
+   the CUDA-core kernel's that computed bf16 before the tensor-core one (a
+   constant quoted from PERF.md);
    selective_scan_backward — K2's backward kernel against its plain
    backward at the two scan shapes, rel 1e-4, bit-equal, one launch a call,
    its time beside its bytes bound;
@@ -95,7 +99,8 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    weights and moments, bf16 compute, 4 x 2,048 tokens in two
    micro-batches, six AdamW steps on one batch (the loss falls; K1 24
    times forward and 24 times backward per micro-batch), tokens/s, peak
-   memory and one step under the profiler; then ``TrainLoop`` with a
+   memory and one step under the profiler (K1 backward's share of the
+   step's device time below 20%); then ``TrainLoop`` with a
    checkpoint at step 3 and a failure injected at step 4, whose resumed
    steps 4-6 and final parameters must equal the uninterrupted run's bit
    for bit;
@@ -332,7 +337,7 @@ def phase_build() -> None:
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 
     sources = [scan_kernel.SOURCE, scan_kernel.BWD_SOURCE, *flash_kernel.SOURCES.values(),
-               flash_kernel.BWD_SOURCE]
+               *flash_kernel.BWD_SOURCES.values()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(build.build, sources))
@@ -349,8 +354,9 @@ def phase_build() -> None:
         ptxas=ptxas,
         selective_scan_tiles={n: scan_kernel.tiles(n) for n in scan_kernel.STATE_WIDTHS},
     )
-    bf16 = flash_kernel.SOURCES[torch.bfloat16].name
-    check(sass[bf16]["HGMMA"] > 0, f"{bf16} has no wgmma (HGMMA) in its SASS")
+    for bf16 in (flash_kernel.SOURCES[torch.bfloat16].name,
+                 flash_kernel.BWD_SOURCES[torch.bfloat16].name):
+        check(sass[bf16]["HGMMA"] > 0, f"{bf16} has no wgmma (HGMMA) in its SASS")
     scan = scan_kernel.SOURCE.name
     check(sass[scan]["MUFU.EX2"] > 0, f"{scan} has no MUFU.EX2 in its SASS")
 
@@ -677,8 +683,22 @@ def phase_flash_attention() -> dict:
 
 # K1's backward against its plain backward: each gradient within this share
 # of its largest magnitude (float32 products in both; bf16 gradients are
-# rounded once to bf16, 2^-8 relative, and recomputed from bf16 q, k, v)
+# rounded once to bf16, 2^-8 relative, and recomputed from bf16 q, k, v;
+# the bf16 kernel also rounds P and dS to bf16, 2^-9 relative, for its
+# tensor-core products)
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K1 backward's time at each case on the CUDA-core kernel, which computed
+# bf16 too before the tensor-core kernel took that dtype (PERF.md §6,
+# chip_smoke on an NVIDIA H100 80GB HBM3 at 700.00 W); the float32 case
+# still runs it
+CUDA_CORE_BWD_MS = {
+    "llama3-8b bf16": 40.641,
+    "llama3-8b f32": 40.608,
+    "h2o-danube-1.8b train bf16": 13.412,
+    "h2o-danube-1.8b long bf16": 62.622,
+    "gemma2-9b bf16": 287.72,
+    "qwen3-moe-30b-a3b bf16": 24.701,
+}
 
 
 def phase_flash_attention_backward() -> dict:
@@ -802,7 +822,10 @@ def phase_flash_attention_backward() -> dict:
             bit_equal=bit_equal,
             dropping_moves_gradient_by=moved,
             kernels_per_call=3,
+            route="wgmma+tma" if dtype == torch.bfloat16 else "cuda cores",
             kernel_ms=kernel_ms,
+            cuda_core_kernel_ms=CUDA_CORE_BWD_MS[label],
+            speedup_vs_cuda_core_kernel=CUDA_CORE_BWD_MS[label] / kernel_ms,
             plain_ms=plain_ms,
             library_ms=library_ms,
             library="sdpa backward" if library_ms is not None else None,
@@ -2291,7 +2314,9 @@ def phase_lm_danube_train() -> int:
     micro-batch.  Then the same six steps through ``TrainLoop`` with a
     checkpoint every 3 steps and a ``FailureInjector`` at step 4: the run
     resumes from step 3's checkpoint and reproduces steps 4-6's losses and
-    the final parameters bit for bit.  Returns K1's backward launches in
+    the final parameters bit for bit.  One steady step under the profiler
+    gives K1 backward's share of the step's device time (its three kernels
+    a call), which must stay below 20%.  Returns K1's backward launches in
     one step (the main path's run)."""
     from repro_torch.checkpoint import store
     from repro_torch.configs import get_config
@@ -2333,8 +2358,10 @@ def phase_lm_danube_train() -> int:
     check(all(np.isfinite(losses)), f"danube losses are not finite: {losses}")
     check(losses[-1] < losses[0], f"danube loss does not fall: {losses}")
     ms_step = 1e3 * float(np.median(walls))
+    # every K1 backward call launches three kernels (D, dK/dV, dQ)
     profile = device_profile(lambda: step(params, opt, batch, n_steps),
-                             watch="flash_bwd_dkdv", top=8, expected=accum * per_micro)
+                             watch="flash_bwd", top=8, expected=3 * accum * per_micro)
+    k1_bwd_share = profile["watched"]["ms"] / profile["device_ms"]
     ops = train_step_ops(cfg, B, S)
     del params, tree, opt, metrics
     free_card()
@@ -2387,6 +2414,8 @@ def phase_lm_danube_train() -> int:
         step_ops=ops,
         peak_gb=peak_gb,
         step_profile=profile,
+        k1_backward_device_ms=profile["watched"]["ms"],
+        k1_backward_share_of_device=k1_bwd_share,
         resume=dict(
             failed_at=4, checkpoint_step=saved, checkpoint_gb=ckpt_gb,
             first_run_s=first_s, resume_run_s=resume_s, end_step=end,
@@ -2403,6 +2432,8 @@ def phase_lm_danube_train() -> int:
     check(resumed_losses == losses[3:],
           f"resumed losses {resumed_losses} differ from the uninterrupted {losses[3:]}")
     check(same_params, "resumed final parameters differ from the uninterrupted run's")
+    check(k1_bwd_share < 0.20,
+          f"K1's backward takes {k1_bwd_share:.1%} of the danube step's device time")
     return counts["k1_bwd"]
 
 
@@ -2622,8 +2653,8 @@ def main() -> int:
     flash_bwd_row = {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "design": "cuda cores",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "design": "wgmma+tma",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:113",
         "gradient_of": "src/repro/models/attention.py:72 (XLA autodiff of blocked_attention)",
         **phase_flash_attention_backward(),

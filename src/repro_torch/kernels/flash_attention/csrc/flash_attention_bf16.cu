@@ -15,8 +15,8 @@
 // finite and is wiped by the next live tile's rescale) and the final sum
 // clamped to 1e-30, as the TPU kernel and flash_attention.cu do; for
 // training it also writes each row's float32 log-sum-exp (the backward,
-// flash_attention_bwd.cu, recomputes the probabilities from it; serving
-// passes a null pointer).  Scores,
+// flash_attention_bwd_bf16.cu, recomputes the probabilities from it;
+// serving passes a null pointer).  Scores,
 // the running max and sum, and the output accumulator are float32; the
 // probabilities are rounded to bf16 for the P V product (at most 2^-9
 // relative per weight); the output is bf16.
@@ -38,7 +38,7 @@
 // O stays in float32 registers; rows past Sq and columns past dh are not
 // stored.
 //
-// Shared memory is laid out for TMA's 128-byte swizzle: a tile of R rows
+// Shared memory is laid out for TMA's 128-byte swizzle (tma.cuh): a tile of R rows
 // is DHP / 64 panels of R rows x 64 bf16 (128 bytes a row), 1024-byte
 // aligned, so the wgmma descriptors use the 128B-swizzle layout.  dh is
 // padded to DHP, a multiple of 64, by TMA's out-of-bounds zero fill (the
@@ -60,13 +60,9 @@
 // products (intra-warpgroup pipelining, warpgroup ping-pong), persistent
 // blocks.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cudaTypedefs.h>
-
 #include <cstdint>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -75,10 +71,18 @@ constexpr int kBQ = 128;                   // q rows per block, 64 per consumer 
 constexpr int kConsumerThreads = 256;      // warpgroups 0 and 1
 constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
 constexpr int kStages = 2;                 // K/V ring depth
-constexpr int kPanel = 64;                 // bf16 columns in one 128-byte swizzled row
-constexpr int kRowBytes = 128;
 constexpr float kMaskValue = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+using tma::kRowBytes;
+using tma::make_map;
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::pack_bf16;
+using tma::pin;
+using tma::sw128_desc;
 
 struct Params {
   void* o;
@@ -92,7 +96,6 @@ struct Params {
 
 template <int DHP, int BK>
 struct Layout {
-  static constexpr int kPanels = DHP / kPanel;
   static constexpr uint32_t kQBytes = kBQ * DHP * 2;
   static constexpr uint32_t kTileBytes = BK * DHP * 2;  // one K or V tile
   static constexpr uint32_t kQ = 0;
@@ -102,67 +105,6 @@ struct Layout {
   static constexpr size_t kSmem = kBarriers + 8 * (1 + 2 * kStages) + 1024;
   static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0, "swizzle atoms");
 };
-
-// ---- PTX helpers ----------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of (64 columns, rows, 1, 1) at (col, row, head, batch) into shared
-// memory at `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row,
-                                         int head, int batch, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(batch), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128B-swizzled operand: start
-// address, leading byte offset (K-major: unused, 16; MN-major: the stride
-// between 64-column panels), stride byte offset 1024 (eight 128-byte rows)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// keep the compiler from moving accumulator registers across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---- the kernel -----------------------------------------------------------
 
@@ -213,19 +155,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == kConsumerThreads) {
       mbar_expect_tx(bar_q, L::kQBytes);
-#pragma unroll
-      for (int pn = 0; pn < L::kPanels; ++pn)
-        tma_load(q_smem + pn * kBQ * kRowBytes, &tm_q, pn * kPanel, q0, h, b, bar_q);
+      tma::load_tile<DHP>(q_smem, &tm_q, kBQ, q0, h, b, bar_q);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * L::kTileBytes);
         const int k0 = kv_lo + i * BK;
-#pragma unroll
-        for (int pn = 0; pn < L::kPanels; ++pn) {
-          tma_load(k_smem(s) + pn * BK * kRowBytes, &tm_k, pn * kPanel, k0, kvh, b, full(s));
-          tma_load(v_smem(s) + pn * BK * kRowBytes, &tm_v, pn * kPanel, k0, kvh, b, full(s));
-        }
+        tma::load_tile<DHP>(k_smem(s), &tm_k, BK, k0, kvh, b, full(s));
+        tma::load_tile<DHP>(v_smem(s), &tm_v, BK, k0, kvh, b, full(s));
       }
     }
   } else {
@@ -369,42 +306,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side --------------------------------------------------------------
 
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static const PFN_cuTensorMapEncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a 4-d map (dh, seq, heads, batch) of a bf16 tensor with element strides
-// (1, ss, sh, sb), read in 128B-swizzled boxes of 64 columns x `rows`
-bool make_map(CUtensorMap* map, const void* ptr, int dh, int seq, int heads, int batch,
-              long long ss, long long sh, long long sb, int rows) {
-  const PFN_cuTensorMapEncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // q, k and v with their element strides (batch, head, seq)
 struct Inputs {
   const void *q, *k, *v;
@@ -437,8 +338,9 @@ cudaError_t launch(const Inputs& in, const Params& p, cudaStream_t stream) {
 // flash_attention.cu's; q, k, v and o are bfloat16.  Strides are in
 // elements; dh is contiguous; base addresses and the strides in bytes
 // must be multiples of 16 (TMA); `lse` is null or a contiguous float32
-// (B, H, Sq) buffer for the rows' log-sum-exp.  Launches on `stream`, does not
-// synchronise, allocates nothing.  Returns cudaGetLastError() after the
+// (B, H, Sq) buffer for the rows' log-sum-exp.  Makes q's device current in
+// the calling thread, launches on `stream`, does not synchronise, allocates
+// nothing.  Returns cudaGetLastError() after the
 // launch (or the error of cudaFuncSetAttribute), or cudaErrorInvalidValue
 // for a head dim that is not a multiple of 8 up to 256, an empty shape,
 // heads % kv_heads != 0 or a tensor map the driver refuses.
@@ -458,6 +360,8 @@ extern "C" int flash_attention_fwd(
   const Params p{o, o_sb, o_sh, o_ss, heads, kv_heads, sq, skv, dh,
                  scale, causal, window, logit_cap, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t bound = tma::use_device_of(q);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   // dh padded to 64, 128 or 256 columns; dh 256 takes 64-key tiles to fit
   // shared memory and registers
   const cudaError_t err = dh <= 64    ? launch<64, 128>(in, p, s)

@@ -1,11 +1,11 @@
-// Flash attention, backward — on CUDA cores (sm_90a), float32 or bfloat16
-// inputs, float32 arithmetic.
+// Flash attention, backward, float32 — on CUDA cores (sm_90a).
 //
 // The Pallas TPU kernel `flash_attention` (src/repro/kernels/flash_attention/
 // kernel.py) has no backward: the reference trains through XLA's autodiff
 // of `blocked_attention` (src/repro/models/attention.py).  This file is the
-// gradient of the port's forward kernels (flash_attention.cu,
-// flash_attention_bf16.cu) for
+// gradient of the port's float32 forward (flash_attention.cu) for float32
+// inputs; bfloat16 inputs go to flash_attention_bwd_bf16.cu (tensor cores),
+// a choice by dtype like the forward's, not a fallback.  It computes, for
 //
 //   o = softmax(cap(q k^T * dh^-1/2) + mask) v,
 //
@@ -44,12 +44,10 @@
 // Bound on an H100 SXM at llama3-8b's prefill shape (B=4, H=32, Kv=8,
 // S=2048, dh=128, causal): the forward's 4 dh operations per visible pair,
 // 137.5 GFLOP, times 2.5 for the backward's five products (two of them the
-// recomputed S and dP) is 344 GFLOP: 0.35 ms at bf16 tensor-core peak (989
-// TFLOP/s), 5.1 ms at float32 CUDA-core peak (67 TFLOP/s).  This first
-// version runs on CUDA cores, so the second is its own floor; moving the
-// five products to wgmma is later work.
+// recomputed S and dP) is 344 GFLOP: 5.1 ms at float32 CUDA-core peak (67
+// TFLOP/s).  The float32 route stays on CUDA cores because its parity
+// tolerance (rel 1e-4) rules out TF32 products.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -76,26 +74,12 @@ struct Params {
   float logit_cap;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ const float* row_ptr(const Tensor4& t, int b, int h, int s) {
+  return static_cast<const float*>(t.ptr) + b * t.sb + h * t.sh + s * t.ss;
 }
 
-template <typename T>
-__device__ __forceinline__ const T* row_ptr(const Tensor4& t, int b, int h, int s) {
-  return static_cast<const T*>(t.ptr) + b * t.sb + h * t.sh + s * t.ss;
-}
-
-template <typename T>
-__device__ __forceinline__ T* row_ptr_mut(const Tensor4& t, int b, int h, int s) {
-  return const_cast<T*>(static_cast<const T*>(t.ptr)) + b * t.sb + h * t.sh + s * t.ss;
+__device__ __forceinline__ float* row_ptr_mut(const Tensor4& t, int b, int h, int s) {
+  return const_cast<float*>(row_ptr(t, b, h, s));
 }
 
 // whether query row `row` (index into Sq) may attend key `col`
@@ -110,28 +94,27 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
 // Stage `rows` rows of a (B, H, S, DH) operand, starting at row s0, into
 // shared memory as float32 with leading dimension LD; rows past `limit`
 // load as zeros.
-template <typename T, int DH, int LD>
+template <int DH, int LD>
 __device__ __forceinline__ void stage(float* dst, const Tensor4& t, int b, int h, int s0,
                                       int rows, int limit) {
   for (int i = threadIdx.x; i < rows * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
     const int s = s0 + r;
-    dst[r * LD + d] = s < limit ? to_f32(row_ptr<T>(t, b, h, s)[d]) : 0.0f;
+    dst[r * LD + d] = s < limit ? row_ptr(t, b, h, s)[d] : 0.0f;
   }
 }
 
 // ---- D = rowsum(dO * O) -----------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(32 * kDeltaRows) flash_bwd_delta_kernel(const Params p, int dh) {
   const int row = blockIdx.x * kDeltaRows + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int h = blockIdx.y, b = blockIdx.z;
   if (row >= p.sq) return;
-  const T* o = row_ptr<T>(p.o, b, h, row);
-  const T* dout = row_ptr<T>(p.dout, b, h, row);
+  const float* o = row_ptr(p.o, b, h, row);
+  const float* dout = row_ptr(p.dout, b, h, row);
   float sum = 0.0f;
-  for (int d = lane; d < dh; d += 32) sum = fmaf(to_f32(o[d]), to_f32(dout[d]), sum);
+  for (int d = lane; d < dh; d += 32) sum = fmaf(o[d], dout[d], sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) p.delta[(static_cast<long long>(b) * p.heads + h) * p.sq + row] = sum;
@@ -201,7 +184,7 @@ __device__ __forceinline__ void score_tile(const Params& p, const float* qs, con
 
 // ---- dK, dV: one block per (KV tile, kv-head, batch) ---------------------------
 
-template <typename T, int DH, int BQ, int BK>
+template <int DH, int BQ, int BK>
 struct DkdvTile {
   static constexpr int LD = DH + 1;
   static constexpr int LDP = BK + 1;
@@ -209,9 +192,9 @@ struct DkdvTile {
       sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BQ * LDP + 2 * BQ);
 };
 
-template <typename T, int DH, int BQ, int BK>
+template <int DH, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p) {
-  using L = DkdvTile<T, DH, BQ, BK>;
+  using L = DkdvTile<DH, BQ, BK>;
   constexpr int LD = L::LD, LDP = L::LDP;
   constexpr int KPT = BK / kRowThreads;  // keys a thread accumulates
   constexpr int DPT = DH / kColThreads;  // columns of dh a thread accumulates
@@ -235,8 +218,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p
   const int ty = threadIdx.x / kColThreads;
   const int q_offset = p.skv - p.sq;
 
-  stage<T, DH, LD>(ks, p.k, b, kvh, k0, BK, p.skv);
-  stage<T, DH, LD>(vs, p.v, b, kvh, k0, BK, p.skv);
+  stage<DH, LD>(ks, p.k, b, kvh, k0, BK, p.skv);
+  stage<DH, LD>(vs, p.v, b, kvh, k0, BK, p.skv);
 
   // the q rows some column of this tile is visible to
   int r_lo = 0, r_hi = p.sq;  // [r_lo, r_hi)
@@ -256,8 +239,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p
     const float* delta_g = p.delta + (static_cast<long long>(b) * p.heads + h) * p.sq;
     for (int q0 = q_first; q0 < r_hi; q0 += BQ) {
       __syncthreads();  // the previous tile's qs, dos, ps and dss are no longer read
-      stage<T, DH, LD>(qs, p.q, b, h, q0, BQ, p.sq);
-      stage<T, DH, LD>(dos, p.dout, b, h, q0, BQ, p.sq);
+      stage<DH, LD>(qs, p.q, b, h, q0, BQ, p.sq);
+      stage<DH, LD>(dos, p.dout, b, h, q0, BQ, p.sq);
       for (int r = threadIdx.x; r < BQ; r += kThreads) {
         const bool in = q0 + r < p.sq;
         lse_s[r] = in ? lse_g[q0 + r] : 0.0f;
@@ -294,12 +277,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p
   for (int i = 0; i < KPT; ++i) {
     const int col = k0 + ty + kRowThreads * i;
     if (col < p.skv) {
-      T* dkg = row_ptr_mut<T>(p.dk, b, kvh, col);
-      T* dvg = row_ptr_mut<T>(p.dv, b, kvh, col);
+      float* dkg = row_ptr_mut(p.dk, b, kvh, col);
+      float* dvg = row_ptr_mut(p.dv, b, kvh, col);
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
-        dkg[tx + kColThreads * j] = from_f32<T>(dk[i][j] * p.scale);
-        dvg[tx + kColThreads * j] = from_f32<T>(dv[i][j]);
+        dkg[tx + kColThreads * j] = dk[i][j] * p.scale;
+        dvg[tx + kColThreads * j] = dv[i][j];
       }
     }
   }
@@ -307,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p
 
 // ---- dQ: one block per (Q tile, q-head, batch) ---------------------------------
 
-template <typename T, int DH, int BQ, int BK>
+template <int DH, int BQ, int BK>
 struct DqTile {
   static constexpr int LD = DH + 1;
   static constexpr int LDP = BK + 1;
@@ -315,9 +298,9 @@ struct DqTile {
       sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * LDP + 2 * BQ);
 };
 
-template <typename T, int DH, int BQ, int BK>
+template <int DH, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
-  using L = DqTile<T, DH, BQ, BK>;
+  using L = DqTile<DH, BQ, BK>;
   constexpr int LD = L::LD, LDP = L::LDP;
   constexpr int RPT = BQ / kRowThreads;
   constexpr int DPT = DH / kColThreads;
@@ -340,8 +323,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   const int ty = threadIdx.x / kColThreads;
   const int q_offset = p.skv - p.sq;
 
-  stage<T, DH, LD>(qs, p.q, b, h, q0, BQ, p.sq);
-  stage<T, DH, LD>(dos, p.dout, b, h, q0, BQ, p.sq);
+  stage<DH, LD>(qs, p.q, b, h, q0, BQ, p.sq);
+  stage<DH, LD>(dos, p.dout, b, h, q0, BQ, p.sq);
   const long long row_base = (static_cast<long long>(b) * p.heads + h) * p.sq;
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     const bool in = q0 + r < p.sq;
@@ -364,8 +347,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += BK) {
     __syncthreads();  // the previous tile's ks, vs and dss are no longer read
-    stage<T, DH, LD>(ks, p.k, b, kvh, k0, BK, p.skv);
-    stage<T, DH, LD>(vs, p.v, b, kvh, k0, BK, p.skv);
+    stage<DH, LD>(ks, p.k, b, kvh, k0, BK, p.skv);
+    stage<DH, LD>(vs, p.v, b, kvh, k0, BK, p.skv);
     __syncthreads();
     score_tile<DH, BQ, BK, LD, LDP>(p, qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0);
     __syncthreads();  // dS complete
@@ -387,9 +370,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + ty + kRowThreads * i;
     if (row < p.sq) {
-      T* dqg = row_ptr_mut<T>(p.dq, b, h, row);
+      float* dqg = row_ptr_mut(p.dq, b, h, row);
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) dqg[tx + kColThreads * j] = from_f32<T>(dq[i][j] * p.scale);
+      for (int j = 0; j < DPT; ++j) dqg[tx + kColThreads * j] = dq[i][j] * p.scale;
     }
   }
 }
@@ -402,17 +385,17 @@ cudaError_t raise_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   // accumulators near 64 registers a thread at every dh (see the header)
   constexpr int kDqRows = DH <= 64 ? 64 : DH <= 128 ? 32 : 16;
   constexpr int kDqKeys = DH <= 64 ? 64 : 32;
   constexpr int kDkKeys = DH <= 64 ? 64 : DH <= 128 ? 32 : 16;
   constexpr int kDkRows = 32;
-  using Dq = DqTile<T, DH, kDqRows, kDqKeys>;
-  using Dk = DkdvTile<T, DH, kDkRows, kDkKeys>;
-  auto dq_kernel = flash_bwd_dq_kernel<T, DH, kDqRows, kDqKeys>;
-  auto dk_kernel = flash_bwd_dkdv_kernel<T, DH, kDkRows, kDkKeys>;
+  using Dq = DqTile<DH, kDqRows, kDqKeys>;
+  using Dk = DkdvTile<DH, kDkRows, kDkKeys>;
+  auto dq_kernel = flash_bwd_dq_kernel<DH, kDqRows, kDqKeys>;
+  auto dk_kernel = flash_bwd_dkdv_kernel<DH, kDkRows, kDkKeys>;
   // the shared-memory limits belong to the instantiations: raised once
   static const cudaError_t attr_err = [&] {
     const cudaError_t e = raise_smem(dq_kernel, Dq::kSmem);
@@ -421,7 +404,7 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   if (attr_err != cudaSuccess) return attr_err;
 
   const dim3 delta_grid((p.sq + kDeltaRows - 1) / kDeltaRows, p.heads, batch);
-  flash_bwd_delta_kernel<T><<<delta_grid, 32 * kDeltaRows, 0, stream>>>(p, DH);
+  flash_bwd_delta_kernel<<<delta_grid, 32 * kDeltaRows, 0, stream>>>(p, DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 dk_grid((p.skv + kDkKeys - 1) / kDkKeys, p.kv_heads, batch);
@@ -433,15 +416,14 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_dh(const Params& p, int batch, int dh, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<T, 16>(p, batch, stream);
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 80: return launch<T, 80>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
-    case 256: return launch<T, 256>(p, batch, stream);
+    case 16: return launch<16>(p, batch, stream);
+    case 32: return launch<32>(p, batch, stream);
+    case 64: return launch<64>(p, batch, stream);
+    case 80: return launch<80>(p, batch, stream);
+    case 128: return launch<128>(p, batch, stream);
+    case 256: return launch<256>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -450,7 +432,8 @@ cudaError_t dispatch_dh(const Params& p, int batch, int dh, cudaStream_t stream)
 
 // Plain C entry point (bound with ctypes).  `ptrs` holds the base addresses
 // of q, k, v, o, dO, dQ, dK and dV (in that order; dQ, dK, dV written), all
-// of `dtype` (0 float32, 1 bfloat16) with a contiguous dh; `strides` their
+// float32 (`dtype` 0; flash_attention_bwd_bf16.cu exports the same entry
+// point for bfloat16) with a contiguous dh; `strides` their
 // (batch, head, seq) element strides, 24 values in the same order.  `lse`
 // is the forward's float32 (B, H, Sq) log-sum-exp, `delta` float32 (B, H,
 // Sq) scratch, both contiguous.  Launches three kernels on `stream` (D, then
@@ -462,7 +445,7 @@ extern "C" int flash_attention_bwd(const void* const* ptrs, const long long* str
                                    int heads, int kv_heads, int sq, int skv, int dh, float scale,
                                    int causal, int window, float logit_cap, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || sq <= 0 || skv <= 0 ||
-      heads % kv_heads != 0 || (dtype != 0 && dtype != 1)) {
+      heads % kv_heads != 0 || dtype != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Tensor4 t[8];
@@ -472,7 +455,5 @@ extern "C" int flash_attention_bwd(const void* const* ptrs, const long long* str
   const Params p{t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], lse, delta,
                  heads, kv_heads, sq, skv, scale, causal, window, logit_cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? dispatch_dh<float>(p, batch, dh, s)
-                                     : dispatch_dh<__nv_bfloat16>(p, batch, dh, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_dh(p, batch, dh, s));
 }

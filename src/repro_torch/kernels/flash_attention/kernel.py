@@ -25,11 +25,18 @@ views of the model's (B, S, H, dh) tensors, transposed to (B, H, S, dh),
 go in without a copy; dh must be contiguous, and for bfloat16 (TMA) the
 base addresses and the strides in bytes must be multiples of 16.  For
 training the forward also writes the float32 row log-sum-exp (``lse``),
-from which :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-CUDA cores, float32 arithmetic, both input dtypes, no atomics) recomputes
-the probabilities; serving passes none.  ``flash_attention_bwd.launches``
-counts its calls, each of which launches three kernels (D = rowsum(dO O),
-dK and dV, dQ).
+from which :func:`flash_attention_bwd` recomputes the probabilities;
+serving passes none.  The backward, too, has two kernels chosen by dtype
+(``BWD_SOURCES``), both without atomics:
+
+- bfloat16: ``csrc/flash_attention_bwd_bf16.cu``, on the tensor cores
+  (wgmma fed by TMA, the forward's producer and consumer warpgroups; a
+  dK/dV pass per KV tile summing the GQA group and a dQ pass per q tile);
+  every operand and gradient buffer needs the forward's 16-byte rule;
+- float32: ``csrc/flash_attention_bwd.cu``, on CUDA cores.
+
+``flash_attention_bwd.launches`` counts its calls, each of which launches
+three kernels (D = rowsum(dO O), dK and dV, dQ).
 """
 
 from __future__ import annotations
@@ -51,7 +58,10 @@ SOURCES = {
     torch.bfloat16: CSRC / "flash_attention_bf16.cu",
     torch.float32: CSRC / "flash_attention.cu",
 }
-BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+BWD_SOURCES = {
+    torch.bfloat16: CSRC / "flash_attention_bwd_bf16.cu",
+    torch.float32: CSRC / "flash_attention_bwd.cu",
+}
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # dh values every kernel takes
 _TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 
@@ -70,8 +80,8 @@ def _library(dtype: torch.dtype) -> ctypes.CDLL:
     return lib
 
 
-def _bwd_library() -> ctypes.CDLL:
-    lib = build.load(BWD_SOURCE)
+def _bwd_library(dtype: torch.dtype) -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCES[dtype])
     fn = lib.flash_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
@@ -86,6 +96,14 @@ def _bwd_library() -> ctypes.CDLL:
 def _tma_aligned(t: torch.Tensor) -> bool:
     byte_strides = (st * t.element_size() for st in t.stride()[:3])
     return all(x % _TMA_ALIGN == 0 for x in (t.data_ptr(), *byte_strides))
+
+
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    if not _tma_aligned(t):
+        raise ValueError(
+            f"{name}: the bf16 kernels' TMA loads need a {_TMA_ALIGN}-byte-aligned base "
+            f"and strides, got {t.data_ptr() % _TMA_ALIGN} bytes off and strides {t.stride()}"
+        )
 
 
 def _check(q, k, v, out) -> None:
@@ -145,11 +163,8 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have a contiguous head dim")
-        if q.dtype == torch.bfloat16 and not _tma_aligned(t):
-            raise ValueError(
-                f"{name}: the bf16 kernel's TMA loads need a {_TMA_ALIGN}-byte-aligned base "
-                f"and strides, got {t.data_ptr() % _TMA_ALIGN} bytes off and strides {t.stride()}"
-            )
+        if q.dtype == torch.bfloat16:
+            _check_tma(name, t)
     lib = _library(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -213,13 +228,15 @@ def flash_attention_bwd(
         if g.shape != want.shape or g.dtype != q.dtype or g.device != q.device:
             raise ValueError(f"gradient buffer {tuple(g.shape)} {g.dtype} does not fit")
     tensors = (q, k, v, out, dout, *grads)
-    for t in tensors:
+    for name, t in zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"), tensors):
         if t.stride(3) != 1:
             raise ValueError("every operand of the backward must have a contiguous head dim")
+        if q.dtype == torch.bfloat16:
+            _check_tma(name, t)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
-    lib = _bwd_library()
+    lib = _bwd_library(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd(

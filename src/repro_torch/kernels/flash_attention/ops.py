@@ -14,7 +14,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention.kernel import (
+    _tma_aligned,
+    flash_attention,
+    flash_attention_bwd,
+)
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -38,8 +42,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        # the kernels read dh contiguously, the bf16 one through TMA: a
+        # gradient that does not fit is copied (contiguous() would keep a
+        # contiguous view whose base is off by a few bytes)
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16 and not _tma_aligned(_t(dout))):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
         flash_attention_bwd(_t(q), _t(k), _t(v), _t(out), _t(dout), lse,
                             grads=tuple(_t(g) for g in grads), **ctx.options)

@@ -613,6 +613,14 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 60, 100, 64, {}),
     (1, 4, 2, 40, 40, 32, dict(causal=False)),
     (1, 2, 2, 100, 60, 32, {}),
+    # the bf16 kernel's tile edges (64-row q steps, 128-key KV tiles, 64 at
+    # dh 256; 128-row dQ tiles): Skv no multiple of 64 or 128, dh 80 (padded
+    # to 128) with Sq > Skv, GQA 8:1 with a window edge inside a tile, dh 256
+    # (two consumers splitting dh) with the soft-cap
+    (1, 4, 2, 300, 333, 128, {}),
+    (1, 4, 2, 200, 100, 80, {}),
+    (1, 16, 2, 300, 300, 128, dict(window=100)),
+    (1, 2, 1, 333, 333, 256, dict(logit_cap=5.0)),
 ]
 # each gradient within this share of its largest magnitude: float32
 # products in both, bf16 outputs rounded once
@@ -629,7 +637,9 @@ def _rel_to_scale(got, want) -> float:
 def test_flash_backward_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, kwargs):
     """dq, dk and dv from the forward's log-sum-exp, against the plain
     backward; two calls give equal bits (no atomics); rows that see no
-    key get zero dq."""
+    key get zero dq.  Each option (window, soft-cap, non-causal) and the
+    GQA group sum moves the plain gradient past the tolerance when
+    dropped, so a kernel that ignored it would fail."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     q, k, v = _qkv(6, B, H, Kv, Sq, Skv, dh, dtype, cuda, qk_std=1.0)
@@ -650,6 +660,94 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, 
         assert torch.equal(g, g2), name
     if Sq > Skv:
         assert not first[0][:, :, : Sq - Skv].any()
+    for name in kwargs:
+        without = attention_bwd_ref(q, k, v, dout, **{o: x for o, x in kwargs.items() if o != name})
+        assert max(_rel_to_scale(a, b) for a, b in zip(without, want)) > FLASH_BWD_TOL[dtype], name
+    if Kv < H:  # the dk and dv of each group's first q-head alone
+        G = H // Kv
+        _, dk1, dv1 = attention_bwd_ref(q[:, ::G], k, v, dout[:, ::G], **kwargs)
+        assert max(_rel_to_scale(dk1, want[1]), _rel_to_scale(dv1, want[2])) > FLASH_BWD_TOL[dtype]
+
+
+def test_bf16_flash_backward_rejects_a_view_tma_cannot_read(cuda):
+    """A dout whose base lies 2 bytes off 16 raises: the bf16 backward reads
+    through TMA and neither copies nor falls back."""
+    q, k, v = _qkv(8, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    lse = torch.empty((1, 4, 64), device=cuda)
+    out = flash_kernel.flash_attention(q, k, v, lse=lse)
+    shifted = torch.empty(out.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(out.shape)
+    shifted.copy_(out)
+    before = flash_kernel.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kernel.flash_attention_bwd(q, k, v, out, shifted, lse)
+    assert flash_kernel.flash_attention_bwd.launches == before
+
+
+def test_mha_flash_copies_an_output_gradient_tma_cannot_read(cuda):
+    """Under autograd, an output gradient whose base lies 2 bytes off 16 is
+    copied before the bf16 backward reads it: the gradients equal, bit for
+    bit, those from the same values at an aligned address."""
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in _qkv(10, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda))
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda).to(torch.bfloat16)
+    shifted = torch.empty(g.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(g.shape)
+    shifted.copy_(g)
+    assert shifted.data_ptr() % 16 != 0
+    grads = []
+    for upstream in (g, shifted):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        mha_flash(*leaves, causal=True).backward(upstream)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_bf16_flash_kernels_run_in_a_thread_without_a_cuda_context(cuda):
+    """A thread that has made no CUDA call has no current context, which
+    encoding a TMA tensor map needs: the bf16 forward and backward bind
+    q's device themselves (autograd's backward thread is such a thread
+    when the attention gradient is the first kernel it runs)."""
+    import threading
+
+    q, k, v = _qkv(11, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    lse = torch.empty((1, 4, 64), device=cuda)
+    out = torch.empty_like(q)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    torch.cuda.synchronize()
+    errors = []
+
+    def work():
+        try:
+            flash_kernel.flash_attention(q, k, v, lse=lse, out=out)
+            flash_kernel.flash_attention_bwd(q, k, v, out, out, lse, grads=grads)
+        except Exception as e:  # noqa: BLE001 (reported by the main thread)
+            errors.append(e)
+
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v)
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+
+
+def test_bf16_flash_backward_library_runs_on_the_tensor_cores(cuda):
+    """The bf16 backward's SASS holds wgmma (HGMMA) instructions; the
+    float32 one, on CUDA cores, none."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for dtype, source in flash_kernel.BWD_SOURCES.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(build.build(source))], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        counts[dtype] = sass.count("HGMMA")
+    assert counts[torch.bfloat16] > 0 and counts[torch.float32] == 0, counts
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -152,6 +152,29 @@ def test_every_registered_attention_config_has_a_kernel_head_dim():
     assert not missing, f"head dims without a kernel instantiation: {missing}"
 
 
+def test_every_registered_attention_config_meets_the_bf16_backward_tma_rule():
+    """The bf16 backward reads q, k, v and dO through TMA and checks every
+    operand and gradient buffer for a 16-byte-aligned base and strides.  In
+    the training layout (B, S, H, dh), viewed as (B, H, S, dh), as the model
+    and ``ops.mha_flash`` hand them over, every registered attention config
+    meets that rule, so no training step raises on the card."""
+    from repro_torch.configs.base import get_config, list_configs
+
+    with_attention = [
+        cfg for cfg in map(get_config, list_configs())
+        if any(cfg.mixer_kind(slot) == "attn" for slot in range(cfg.group_size))
+    ]
+    B, S = 2, 24
+    for cfg in with_attention:
+        H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, out, dout, dq = (torch.empty((B, S, H, dh), dtype=torch.bfloat16) for _ in range(4))
+        k, v, dk, dv = (torch.empty((B, S, Kv, dh), dtype=torch.bfloat16) for _ in range(4))
+        views = dict(q=q, k=k, v=v, out=out, dout=dout, dq=dq, dk=dk, dv=dv)
+        for name, t in views.items():
+            view = t.transpose(1, 2)
+            assert port_kernel._tma_aligned(view), (cfg.name, name, view.stride())
+
+
 def test_wrapper_rejects_bad_inputs():
     q, k, v = (torch.as_tensor(a) for a in _qkv(8, 1, 4, 2, 16, 16, 16))
     with pytest.raises(TypeError):
