@@ -11,7 +11,8 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    each library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2)
    instructions counted in its SASS (both bf16 K1 libraries must hold
    HGMMA), and each kernel's registers, shared memory and spills as ptxas
-   reports them;
+   reports them (no float32 K1 backward and no N = 16 K2 backward kernel
+   may spill);
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
    width (B=2, S=2048, d_inner=8192, N=16) and at a long prompt of one
    sequence (B=1, S=8192), each held against the plain version, with its
@@ -25,19 +26,20 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    dh=128: GQA 8:1) in bf16, with its time, its bound and PyTorch's SDPA
    beside it;
    flash_attention_backward — K1's backward kernels (bf16 on the tensor
-   cores, float32 on CUDA cores) against the plain
+   cores, float32 register-blocked on CUDA cores) against the plain
    backward at llama3-8b's shape (bf16 and float32), h2o-danube-1.8b's
    training micro-batch (B=2 x 2,048) and long row (B=1 x 8,192, window
-   4,096), gemma2-9b's (dh 256, window, soft-cap 50) and qwen3-moe-30b-a3b's
-   (GQA 8:1): float32 within rel 1e-4, bf16 2e-2 of each gradient's scale,
-   two calls bit-equal, and dropping the window, the soft-cap or the GQA
-   group sum moving the plain gradient past that; its time beside 2.5
-   times the forward's operations bound, the plain backward's, SDPA's and
-   the CUDA-core kernel's that computed bf16 before the tensor-core one (a
+   4,096; bf16 and float32), gemma2-9b's (dh 256, window, soft-cap 50;
+   bf16 and float32) and qwen3-moe-30b-a3b's (GQA 8:1): float32 within
+   rel 1e-4, bf16 2e-2 of each gradient's scale, two calls bit-equal, and
+   dropping the window, the soft-cap or the GQA group sum moving the plain
+   gradient past that; its time beside 2.5 times the forward's operations
+   bound, the plain backward's, SDPA's and the first CUDA-core kernel's (a
    constant quoted from PERF.md);
    selective_scan_backward — K2's backward kernel against its plain
    backward at the two scan shapes, rel 1e-4, bit-equal, one launch a call,
-   its time beside its bytes bound;
+   its time beside its bytes bound, its blocks an SM and the bytes its
+   design adds;
 5. quickstart — profile_pair -> fit_signature -> predict_counters on the
    E5-2699 v3 (the paper's pipeline; error < 5%);
 6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
@@ -315,6 +317,19 @@ def sass_counts(lib: Path) -> dict[str, int]:
             for op in ("HGMMA", "HMMA", "MUFU.EX2")}
 
 
+def sass_sizes(lib: Path) -> dict[str, int]:
+    """Each kernel's instruction count in a library's SASS (the kernels'
+    loops are unrolled, so this is the work of a chunk or a tile)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    sizes = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        sizes[name.strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
+    return sizes
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Each kernel's registers, static shared memory and spills from
     nvcc's ``-Xptxas -v`` output."""
@@ -346,11 +361,15 @@ def phase_build() -> None:
         check(lib.exists(), f"{lib} was not built")
     sass = {src.name: sass_counts(lib) for src, lib in zip(sources, libs)}
     ptxas = {src.name: ptxas_report(build.BUILD_LOGS.get(src.name, "")) for src in sources}
+    f32_bwd_source = flash_kernel.BWD_SOURCES[torch.float32]
+    sizes = {src.name: sass_sizes(lib) for src, lib in zip(sources, libs)
+             if src in (scan_kernel.BWD_SOURCE, f32_bwd_source)}
     emit(
         "build",
         seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in libs],
         sass_instructions=sass,
+        sass_instructions_per_kernel=sizes,
         ptxas=ptxas,
         selective_scan_tiles={n: scan_kernel.tiles(n) for n in scan_kernel.STATE_WIDTHS},
     )
@@ -359,6 +378,12 @@ def phase_build() -> None:
         check(sass[bf16]["HGMMA"] > 0, f"{bf16} has no wgmma (HGMMA) in its SASS")
     scan = scan_kernel.SOURCE.name
     check(sass[scan]["MUFU.EX2"] > 0, f"{scan} has no MUFU.EX2 in its SASS")
+    # the float32 K1 backward (every instantiation) and K2's backward at
+    # N = 16 keep their accumulators and chunk states in registers
+    spilled = [k["kernel"] for k in ptxas[f32_bwd_source.name] if k.get("spill_stores", 0)]
+    spilled += [k["kernel"] for k in ptxas[scan_kernel.BWD_SOURCE.name]
+                if "ILi16E" in k["kernel"] and k.get("spill_stores", 0)]
+    check(not spilled, f"backward kernels spill registers: {spilled}")
 
 
 def scan_inputs(B, S, di, n, seed, device):
@@ -687,16 +712,20 @@ def phase_flash_attention() -> dict:
 # the bf16 kernel also rounds P and dS to bf16, 2^-9 relative, for its
 # tensor-core products)
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# K1 backward's time at each case on the CUDA-core kernel, which computed
-# bf16 too before the tensor-core kernel took that dtype (PERF.md §6,
-# chip_smoke on an NVIDIA H100 80GB HBM3 at 700.00 W); the float32 case
-# still runs it
+# K1 backward's time at each case on the first CUDA-core kernel (PR 18),
+# which computed bf16 too before the tensor-core kernel took that dtype and
+# float32 until the register-blocked kernel replaced it (PERF.md §6, on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: chip_smoke for the bf16 cases and
+# llama3's float32 one, tools/kernel_ab.py against PR 19's tree, the mean
+# of its two turns, for danube long and gemma2 in float32)
 CUDA_CORE_BWD_MS = {
     "llama3-8b bf16": 40.641,
     "llama3-8b f32": 40.608,
     "h2o-danube-1.8b train bf16": 13.412,
     "h2o-danube-1.8b long bf16": 62.622,
+    "h2o-danube-1.8b long f32": 59.564,
     "gemma2-9b bf16": 287.72,
+    "gemma2-9b f32": 256.733,
     "qwen3-moe-30b-a3b bf16": 24.701,
 }
 
@@ -730,7 +759,9 @@ def phase_flash_attention_backward() -> dict:
         ("llama3-8b f32", (4, 32, 8, 2048, 128), torch.float32, {}, 1.0, None),
         ("h2o-danube-1.8b train bf16", (2, 32, 8, 2048, 80), torch.bfloat16, danube, 1.0, None),
         ("h2o-danube-1.8b long bf16", (1, 32, 8, 8192, 80), torch.bfloat16, danube, 1.0, 1024),
+        ("h2o-danube-1.8b long f32", (1, 32, 8, 8192, 80), torch.float32, danube, 1.0, 1024),
         ("gemma2-9b bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0, 1024),
+        ("gemma2-9b f32", (1, 16, 8, 8192, 256), torch.float32, gemma2, 5.0, 1024),
         ("qwen3-moe-30b-a3b bf16", (2, 32, 4, 2048, 128), torch.bfloat16, {}, 1.0, None),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -867,10 +898,16 @@ def phase_selective_scan_backward() -> dict:
     bit for bit.  Its time (the wrapper's call: the kernel and the
     partials' sums) stands beside its bytes bound (the function's inputs
     and outputs, :func:`scan_bwd_bytes`), its operations bound and the exp
-    pipe's floor (two exponentials per (b, t, d, n)); the traffic its
-    design adds (saved states, partials) is printed beside them.  Returns
-    the first shape's numbers for the kernels line."""
-    from repro_torch.kernels.mamba_scan.kernel import bwd_layout, selective_scan, selective_scan_bwd
+    pipe's floor (one exponential per (b, t, d, n)); the traffic its
+    design adds (saved states, partials) and its residency (blocks an SM,
+    registers, shared memory) are printed beside them.  Returns the first
+    shape's numbers for the kernels line."""
+    from repro_torch.kernels.mamba_scan.kernel import (
+        bwd_layout,
+        bwd_occupancy,
+        selective_scan,
+        selective_scan_bwd,
+    )
     from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
 
     sm_clock_hz = float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
@@ -904,11 +941,11 @@ def phase_selective_scan_backward() -> dict:
         moved_bytes = scan_bwd_bytes(B, S, di, n)
         design_bytes = scan_bwd_design_bytes(B, S, di, n)
         # per (b, t, d, n): 4 in the recomputed forward step, 22 in the
-        # reverse step (two exponentials counted as operations too)
+        # reverse step (the function's arithmetic, as PR 18 counted it)
         ops = 26 * elems * n
         bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        exp_ms = 2 * elems * n / (sms * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
+        exp_ms = elems * n / (sms * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         row = row or {
             "name": "selective_scan_bwd",
@@ -940,6 +977,7 @@ def phase_selective_scan_backward() -> dict:
             exp_floor_ms=exp_ms,
             design_bytes=design_bytes,
             design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
+            occupancy=bwd_occupancy(n),
             kernel_gb_per_s=moved_bytes / kernel_ms / 1e6,
             share_of_bound=bound_ms / kernel_ms,
         )

@@ -16,33 +16,52 @@
 //   dA       = sum_t lambda_t exp(dt_t A) h_{t-1} dt_t           (d, n)
 //   dB_t     = sum_d lambda_t dt_t x_t,  dC_t = sum_d dy_t h_t   (n)
 //
-// Layout and tiles follow the forward: one block of 128 threads per (batch
-// row, tile of channels), four states a lane, warp w holding state group
-// w % (N/4) of 32 channels.  The block walks the time chunks of kChunk = 16
-// steps in reverse, each chunk's dt, x, dy, B and C copied by cp.async into
-// a 4-stage ring as in the forward.  A chunk starts from the float32 state
-// the forward saved at its start (prefetched one chunk ahead), recomputes
-// its 16 states into registers with the forward's arithmetic, then runs the
-// reverse recurrence over them.
+// Bound on an H100 SXM at falcon-mamba-7b's width, B=2, S=2048,
+// d_inner=8192, N=16: the function reads dt, x and dy and writes ddt and
+// dx, 5 x 134 MB (0.20 ms at 3.35 TB/s), and does about 26 float32
+// operations per (b, t, d, n), 537 M of them (0.21 ms at 67 TFLOP/s).
 //
-// Reductions, all in a fixed order (no atomics, so two calls give equal
-// bits):
-// * ddt and dx sum over the N states, which span N/4 warps: each lane's
-//   per-step partials go through a shared tile and are summed and stored
-//   coalesced after the next chunk's barrier, as the forward stores y.
-// * dA sums over time in registers; each batch row writes its own (d, n)
-//   partial, (B, d_inner, N), summed over B by the wrapper.
-// * dB and dC sum over channels: each step, a warp reduces its 32 channels
-//   of its four states of each (a transposing butterfly: 9 shuffles for the
-//   eight sums) and writes them to its 32-channel slice's partial,
-//   (slices, B, S, N), summed over slices by the wrapper.
+// The first design (PR 18) took 0.802 ms there, 26% of that bound (1.580
+// ms at B=1, S=8192; H100 80GB HBM3, 700 W).  It kept the chunk's 16
+// recomputed states and its per-step ddt/dx partials in registers, 255 a
+// thread with 40-76 bytes of spills, and took each exponential twice (to
+// recompute the states and again in the reverse pass).
 //
-// Bound on an H100 SXM (3.35 TB/s) at falcon-mamba-7b's width, B=2,
-// S=2048, d_inner=8192, N=16: dt, x and dy read and ddt and dx written are
-// 5 x 134 MB, the saved states 134 MB and the dB, dC partials 2 x 67 MB:
-// 940 MB, 0.28 ms.  It also takes two exponentials per (b, t, d, n), one in
-// the recomputed forward and one in the reverse pass (the special-function
-// unit's floor is about 0.26 ms there), and about twenty float32 operations.
+// This design:
+//
+// * One exponential.  Recomputing a chunk keeps exp(dt_t A) beside each
+//   state h_t in registers (a lane's 4 states x 16 steps of each); the
+//   reverse pass reads both.  The per-step ddt/dx partials leave the
+//   registers for a shared tile, so nothing spills: about 210 registers a
+//   thread, two blocks an SM.
+// * Lanes.  kThreads = 128 a block over one batch row; warp w holds states
+//   4 (w % (N/4)) .. +3 of 32 channels, one a lane, so B_t and C_t reach a
+//   warp as one uniform 16-byte shared load.  A block covers 32 channels
+//   at N = 16 (64 at N = 8, 128 at N = 4).
+// * Reductions, all in a fixed order (no atomics, so two calls give equal
+//   bits).  ddt and dx sum over the N/4 warps of a channel: each step a
+//   lane writes its partials to a (group, step, channel) tile, and once a
+//   chunk the block adds the groups in order and stores them coalesced, 16
+//   bytes a thread.  dB and dC sum over the warp's 32 channels every step
+//   (a transposing shuffle butterfly, 9 shuffles for eight sums) and go
+//   straight to the slice of partials of those 32 channels, (slices, B, S,
+//   N), which the wrapper sums in slice order; dA sums over time in
+//   registers, one (B, d_inner, N) partial.
+// * Copies.  Each chunk's dt, x, dy, B and C reach shared memory by
+//   cp.async into a 2-stage ring while the previous chunk is walked (16-byte
+//   copies where d_inner % 4 == 0 and every base is 16-byte aligned, else
+//   4-byte; past S or d_inner zero-filled, so those steps leave lambda 0).
+//
+// What holds it at about 0.73 ms at the falcon shape (chip_smoke, PR 20,
+// H100 80GB HBM3, 700 W), 29% of its bound, is the instruction stream:
+// the SASS of the N = 16 kernel holds 2,240 instructions for its unrolled
+// 16-step chunk, 35 per (b, t, d, n) (12 float operations, the
+// exponential, the loads, the 9-shuffle dB/dC butterfly with its 14
+// selects, the partial stores).  Designs that moved work elsewhere were
+// slower: the chunk's states in shared memory (bound by shared-memory
+// wavefronts), dB/dC reduced through shared memory or summed per block
+// before the store, and two channels a lane (fewer shuffles per element,
+// but 255 registers and twice the exponentials).
 
 #include <cuda_runtime.h>
 
@@ -60,25 +79,29 @@ using scan::exp2_approx;
 using scan::wait_pending;
 
 constexpr int kThreads = 128;       // threads a block
-constexpr int kChunk = 16;          // time steps a stage (the forward's state interval)
-constexpr int kStages = 4;          // depth of the cp.async ring
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 16;          // time steps a chunk (the forward's state interval)
+constexpr int kStages = 2;          // depth of the cp.async ring
 constexpr int kStatesPerLane = 4;   // states of one channel a lane holds
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int N>
 struct Tile {
-  static_assert(N % kStatesPerLane == 0, "N must be a multiple of 4");
-  static constexpr int kLanes = N / kStatesPerLane;     // lanes a channel
-  static constexpr int kChannels = kThreads / kLanes;   // channels a block
-  static_assert(kChannels % 32 == 0 && kChunk % 4 == 0);
-  // shared memory, in floats: kStages x [dt | x | dy | B | C], then
-  // 2 buffers x [ddt partials | dx partials]
-  static constexpr int kIo = kChunk * kChannels;
-  static constexpr int kBc = kChunk * N;
-  static constexpr int kStage = 3 * kIo + 2 * kBc;
-  static constexpr int kRow = kChunk + 4;  // padded as in the forward
-  static constexpr int kPartial = kLanes * kChannels * kRow;
-  static constexpr int kBytes = (kStages * kStage + 4 * kPartial) * 4;
+  static_assert(N % kStatesPerLane == 0 && N <= 16, "N must be 4, 8 or 16");
+  static constexpr int kLanes = N / kStatesPerLane;  // warps a set of 32 channels
+  static constexpr int kSets = kWarps / kLanes;      // sets of 32 channels a block
+  static constexpr int kChannels = 32 * kSets;       // channels a block
+  // shared memory, in floats:
+  static constexpr int kIo = kChunk * kChannels;    // a (step x channel) tile
+  static constexpr int kBc = kChunk * N;            // a (step x state) row block
+  static constexpr int kStage = 3 * kIo + 2 * kBc;  // dt | x | dy | B | C
+  static constexpr int kPart = 2 * kLanes * kIo;    // ddt | dx partials of each state group
+  // after the ring, two buffers of partials, so one chunk's are stored
+  // while the next fills
+  static constexpr int kOut = kStages * kStage;
+  static constexpr int kFloats = kOut + 2 * kPart;
+  static constexpr int kBytes = kFloats * 4;
 };
 
 // Issue the copies of time chunk `t0` into one ring stage: the dt, x and dy
@@ -130,42 +153,49 @@ __device__ __forceinline__ void load_chunk(float* stage, const float* dt, const 
   }
 }
 
-// Sum each channel's kLanes partials of a finished chunk and store them
-// (the forward's store_chunk, for one output).
-template <int N>
-__device__ __forceinline__ void store_chunk(const float* partial, float* out, size_t row0,
-                                            int t0, int seqlen, int d0, int d_inner) {
+// Store a finished chunk's ddt and dx (time steps t0 ..), each the sum of
+// its state groups' partials in group order, coalesced along the channels
+// (16 bytes a thread where d_inner % 4 == 0).
+template <int N, bool kVec>
+__device__ __forceinline__ void flush_chunk(const float* part, float* ddt, float* dx,
+                                            size_t row0, int t0, int seqlen, int d0,
+                                            int d_inner) {
   using T = Tile<N>;
-  constexpr int kItems = T::kChannels * kChunk / 4;
-  static_assert(kItems % kThreads == 0);
+  constexpr int kWidth = kVec ? 4 : 1;
 #pragma unroll
-  for (int i = 0; i < kItems / kThreads; ++i) {
-    const int ch = (threadIdx.x + i * kThreads) % T::kChannels;
-    const int t = (threadIdx.x + i * kThreads) / T::kChannels * 4;
-    float4 sum = *reinterpret_cast<const float4*>(partial + ch * T::kRow + t);
+  for (int i = 0; i < 2 * T::kIo / kWidth / kThreads; ++i) {
+    const int f = (threadIdx.x + i * kThreads) * kWidth;  // first float of the item
+    const int which = f / T::kIo;                          // ddt | dx
+    const int t = (f % T::kIo) / T::kChannels;
+    const int cc = f % T::kChannels;
+    const float* src = part + which * T::kLanes * T::kIo + (f % T::kIo);
+    if (t0 + t < seqlen && d0 + cc < d_inner) {
+      float* dst = (which ? dx : ddt) + (row0 + t0 + t) * d_inner + d0 + cc;
+      if constexpr (kVec) {
+        float4 v = *reinterpret_cast<const float4*>(src);
 #pragma unroll
-    for (int g = 1; g < T::kLanes; ++g) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(partial + (g * T::kChannels + ch) * T::kRow + t);
-      sum.x += v.x;
-      sum.y += v.y;
-      sum.z += v.z;
-      sum.w += v.w;
-    }
-    if (d0 + ch < d_inner) {
-      float* o = out + (row0 + t0 + t) * d_inner + d0 + ch;
-      const int live = seqlen - t0 - t;
-      if (live > 0) o[0] = sum.x;
-      if (live > 1) o[d_inner] = sum.y;
-      if (live > 2) o[2 * d_inner] = sum.z;
-      if (live > 3) o[3 * d_inner] = sum.w;
+        for (int g = 1; g < T::kLanes; ++g) {
+          const float4 u = *reinterpret_cast<const float4*>(src + g * T::kIo);
+          v.x += u.x;
+          v.y += u.y;
+          v.z += u.z;
+          v.w += u.w;
+        }
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        float v = src[0];
+#pragma unroll
+        for (int g = 1; g < T::kLanes; ++g) v += src[g * T::kIo];
+        *dst = v;
+      }
     }
   }
 }
 
-// The sums over a warp's 32 lanes of eight values, by a transposing
-// butterfly: after it, lane l holds the sum of value
-// 4 bit4(l) + 2 bit3(l) + bit2(l) (every lane of a group of four the same).
+// The sums of eight values over a warp's 32 lanes (its 32 channels), by a
+// transposing butterfly: afterwards lane l holds the sum of value
+// 4 bit4(l) + 2 bit3(l) + bit2(l), the same in each group of four lanes.  A
+// fixed order, so equal bits every call.
 __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
   float a4[4];
   const bool u16 = lane & 16;
@@ -191,7 +221,7 @@ __device__ __forceinline__ float warp_sums8(const float (&v)[8], int lane) {
 }
 
 template <int N, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
                           const float* __restrict__ a,       // (di, N)
                           const float* __restrict__ b,       // (B, S, N)
@@ -206,8 +236,8 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
                           float* __restrict__ dc_part,       // (slices, B, S, N)
                           int batch, int seqlen, int d_inner) {
   using T = Tile<N>;
+  constexpr int J = kStatesPerLane;
   extern __shared__ __align__(16) float smem[];
-  float* partials = smem + kStages * T::kStage;  // [buffer][ddt | dx][kPartial]
 
   const int d0 = blockIdx.x * T::kChannels;
   const int bi = blockIdx.y;
@@ -216,26 +246,23 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int group = warp % T::kLanes;
-  const int ch = (warp / T::kLanes) * 32 + lane;
-  const int n0 = group * kStatesPerLane;
+  const int group = warp % T::kLanes;  // warp w holds states 4 (w % kLanes) .. + 3
+  const int set = warp / T::kLanes;    // of channels 32 (w / kLanes) + lane
+  const int ch = set * 32 + lane;
+  const int n0 = group * J;
   const bool live_ch = d0 + ch < d_inner;
-  // this warp's 32-channel slice of the dB / dC partials, and where its lane
-  // writes: the lanes 0, 4, .., 28 hold the eight sums of warp_sums8
-  const size_t slice = static_cast<size_t>(d0) / 32 + warp / T::kLanes;
+  // lanes 0, 4, .., 28 store the dB / dC sums of warp_sums8 (value 0-3 dB,
+  // 4-7 dC of state n0 + v % 4) to the slice of this block's channel set
   const int sum_index = 4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1);
-  float* bc_out = (sum_index < 4 ? db_part : dc_part) +
-                  (slice * batch + bi) * static_cast<size_t>(seqlen) * N + n0 + (sum_index % 4);
+  const size_t slice = static_cast<size_t>(blockIdx.x) * T::kSets + set;
+  float* sum_rows = (sum_index < 4 ? db_part : dc_part) +
+                    (slice * batch + bi) * static_cast<size_t>(seqlen) * N + n0 + sum_index % 4;
 
-  float an[kStatesPerLane], a2[kStatesPerLane];
-  float lam[kStatesPerLane], da_next[kStatesPerLane], dA[kStatesPerLane];
+  float a2[J], lam[J], da_next[J], dA[J];
 #pragma unroll
-  for (int i = 0; i < kStatesPerLane; ++i) {
-    an[i] = live_ch ? a[static_cast<size_t>(d0 + ch) * N + n0 + i] : 0.0f;
-    a2[i] = an[i] * kLog2e;
-    lam[i] = 0.0f;
-    da_next[i] = 0.0f;
-    dA[i] = 0.0f;
+  for (int j = 0; j < J; ++j) {
+    a2[j] = live_ch ? a[static_cast<size_t>(d0 + ch) * N + n0 + j] * kLog2e : 0.0f;
+    lam[j] = da_next[j] = dA[j] = 0.0f;
   }
   auto state_at = [&](int k) -> float4 {
     if (!live_ch) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -243,7 +270,7 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
     return *reinterpret_cast<const float4*>(states + at);
   };
 
-  // prologue: the last kStages-1 chunks in flight, latest first
+  // prologue: the last kStages - 1 chunks in flight, latest first
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < chunks) {
@@ -256,14 +283,16 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
 
   for (int i = 0; i < chunks; ++i) {
     const int k = chunks - 1 - i;  // the chunk this iteration walks
+    const int t0 = k * kChunk;
     wait_pending<kStages - 2>();
-    __syncthreads();  // chunk k landed; stage (i-1) % kStages and partials (i-1) % 2 free
+    __syncthreads();  // chunk k landed; chunk k + 1 and its partials are complete
     if (i + kStages - 1 < chunks) {
-      load_chunk<N, kVec>(smem + ((i + kStages - 1) % kStages) * T::kStage, dt, x, dy, b, c,
-                          row0, (k - (kStages - 1)) * kChunk, seqlen, d0, d_inner);
+      load_chunk<N, kVec>(smem + ((i + kStages - 1) % kStages) * T::kStage, dt, x,
+                          dy, b, c, row0, (k - (kStages - 1)) * kChunk, seqlen, d0, d_inner);
     }
     commit();
     const float4 next_start = k > 0 ? state_at(k - 1) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float* part = smem + T::kOut + (i % 2) * T::kPart + group * T::kIo + ch;
 
     const float* stage = smem + (i % kStages) * T::kStage;
     const float* s_dt = stage + ch;
@@ -272,28 +301,28 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
     const float4* s_b = reinterpret_cast<const float4*>(stage + 3 * T::kIo + n0);
     const float4* s_c = reinterpret_cast<const float4*>(stage + 3 * T::kIo + T::kBc + n0);
 
-    // the chunk's states h_t, recomputed from its saved start as the forward
-    // computes them (steps past S have dt = x = 0 and leave h unchanged)
-    const float h0[kStatesPerLane] = {start.x, start.y, start.z, start.w};
-    float hs[kChunk][kStatesPerLane];
+    // the chunk's states and exponentials, recomputed from its saved start
+    // as the forward computes them (steps past S have dt = x = 0)
+    float hs[kChunk][J], es[kChunk][J];
     {
-      float h[kStatesPerLane] = {start.x, start.y, start.z, start.w};
+      float h[J] = {start.x, start.y, start.z, start.w};
 #pragma unroll
       for (int t = 0; t < kChunk; ++t) {
         const float dt_v = s_dt[t * T::kChannels];
         const float dxv = dt_v * s_x[t * T::kChannels];
-        const float4 bv = s_b[t * (N / 4)];
-        h[0] = fmaf(h[0], exp2_approx(dt_v * a2[0]), dxv * bv.x);
-        h[1] = fmaf(h[1], exp2_approx(dt_v * a2[1]), dxv * bv.y);
-        h[2] = fmaf(h[2], exp2_approx(dt_v * a2[2]), dxv * bv.z);
-        h[3] = fmaf(h[3], exp2_approx(dt_v * a2[3]), dxv * bv.w);
+        const float4 bq = s_b[t * (N / 4)];
+        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
-        for (int j = 0; j < kStatesPerLane; ++j) hs[t][j] = h[j];
+        for (int j = 0; j < J; ++j) {
+          es[t][j] = exp2_approx(dt_v * a2[j]);
+          h[j] = fmaf(h[j], es[t][j], dxv * bv[j]);
+          hs[t][j] = h[j];
+        }
       }
     }
 
     // the reverse recurrence; steps past S have dy = C = 0, so lambda stays 0
-    float acc_ddt[kChunk], acc_dx[kChunk];
+    const float h0[4] = {start.x, start.y, start.z, start.w};
 #pragma unroll
     for (int t = kChunk - 1; t >= 0; --t) {
       const float dt_v = s_dt[t * T::kChannels];
@@ -303,47 +332,37 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,      // (B, S, di)
       const float4 cq = s_c[t * (N / 4)];
       const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
       const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
-      float sum_ddt = 0.0f, sum_dx = 0.0f, sums[8];
+      const float dtx = dt_v * x_v;
+      float sga = 0.0f, slb = 0.0f, prod[8];
 #pragma unroll
-      for (int j = 0; j < kStatesPerLane; ++j) {
-        const float da = exp2_approx(dt_v * a2[j]);
+      for (int j = 0; j < J; ++j) {
         lam[j] = fmaf(lam[j], da_next[j], cv[j] * dy_v);
-        const float h_prev = t > 0 ? hs[t > 0 ? t - 1 : 0][j] : h0[j];
-        const float g = lam[j] * h_prev * da;
-        sum_ddt = fmaf(g, an[j], fmaf(lam[j] * x_v, bv[j], sum_ddt));
-        sum_dx = fmaf(lam[j] * dt_v, bv[j], sum_dx);
+        const float g = lam[j] * ((t > 0 ? hs[t > 0 ? t - 1 : 0][j] : h0[j]) * es[t][j]);
+        sga = fmaf(g, a2[j], sga);
+        slb = fmaf(lam[j], bv[j], slb);
         dA[j] = fmaf(g, dt_v, dA[j]);
-        sums[j] = lam[j] * dt_v * x_v;
-        sums[4 + j] = dy_v * hs[t][j];
-        da_next[j] = da;
+        prod[j] = lam[j] * dtx;         // dB of state n0 + j
+        prod[4 + j] = dy_v * hs[t][j];  // dC of state n0 + j
+        da_next[j] = es[t][j];
       }
-      acc_ddt[t] = sum_ddt;
-      acc_dx[t] = sum_dx;
-      const float reduced = warp_sums8(sums, lane);
-      if (lane % 4 == 0 && k * kChunk + t < seqlen) {
-        bc_out[static_cast<size_t>(k * kChunk + t) * N] = reduced;
-      }
+      // this state group's part of ddt and dx; the flush adds the groups
+      part[t * T::kChannels] = fmaf(sga, kLn2, x_v * slb);
+      part[T::kLanes * T::kIo + t * T::kChannels] = dt_v * slb;
+
+      // dB and dC: the sums of the 8 products over the warp's 32 channels
+      const float reduced = warp_sums8(prod, lane);
+      if (lane % 4 == 0 && t0 + t < seqlen) sum_rows[static_cast<size_t>(t0 + t) * N] = reduced;
     }
     start = next_start;
 
-    float* part = partials + (i % 2) * 2 * T::kPartial + (group * T::kChannels + ch) * T::kRow;
-#pragma unroll
-    for (int t = 0; t < kChunk; t += 4) {
-      *reinterpret_cast<float4*>(part + t) =
-          make_float4(acc_ddt[t], acc_ddt[t + 1], acc_ddt[t + 2], acc_ddt[t + 3]);
-      *reinterpret_cast<float4*>(part + T::kPartial + t) =
-          make_float4(acc_dx[t], acc_dx[t + 1], acc_dx[t + 2], acc_dx[t + 3]);
-    }
-    if (i > 0) {
-      const float* prev = partials + ((i - 1) % 2) * 2 * T::kPartial;
-      store_chunk<N>(prev, ddt, row0, (k + 1) * kChunk, seqlen, d0, d_inner);
-      store_chunk<N>(prev + T::kPartial, dx, row0, (k + 1) * kChunk, seqlen, d0, d_inner);
+    if (i > 0) {  // the previous chunk's partials, complete since this chunk's barrier
+      flush_chunk<N, kVec>(smem + T::kOut + ((i - 1) % 2) * T::kPart, ddt, dx, row0,
+                           t0 + kChunk, seqlen, d0, d_inner);
     }
   }
   __syncthreads();
-  const float* last = partials + ((chunks - 1) % 2) * 2 * T::kPartial;
-  store_chunk<N>(last, ddt, row0, 0, seqlen, d0, d_inner);
-  store_chunk<N>(last + T::kPartial, dx, row0, 0, seqlen, d0, d_inner);
+  flush_chunk<N, kVec>(smem + T::kOut + ((chunks - 1) % 2) * T::kPart, ddt, dx, row0, 0, seqlen,
+                       d0, d_inner);
 
   if (live_ch) {
     const size_t at = (static_cast<size_t>(bi) * d_inner + d0 + ch) * N + n0;
@@ -380,18 +399,35 @@ cudaError_t launch(const Args& g, cudaStream_t stream) {
   return vec ? launch<N, true>(g, stream) : launch<N, false>(g, stream);
 }
 
+template <int N>
+cudaError_t occupancy(int* out) {
+  using T = Tile<N>;
+  auto kernel = selective_scan_bwd_kernel<N, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, T::kBytes);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = attr.numRegs;
+  out[2] = T::kBytes;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return err;
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Inputs as the forward's
 // selective_scan_fwd_f32, plus dy (B, S, d_inner) and the states it saved
 // (B, ceil(S / 16), d_inner, d_state); outputs ddt and dx (B, S, d_inner),
-// the per-batch-row dA partial (B, d_inner, d_state) and the per-32-channel
-// dB and dC partials (slices, B, S, d_state; selective_scan_bwd_layout
-// gives the slices, one per 32 channels of every block), every one
-// contiguous float32 and written whole.  One launch on `stream`; does not
-// synchronise, allocates nothing.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a state width without an
-// instantiation, an empty shape, or states or partials not 16-byte aligned.
+// the per-batch-row dA partial (B, d_inner, d_state) and the per-block dB
+// and dC partials (slices, B, S, d_state; selective_scan_bwd_layout gives
+// the slices, one per block of channels), every one contiguous float32 and
+// written whole.  One launch on `stream`; does not synchronise, allocates
+// nothing.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a state width without an instantiation, an
+// empty shape, or states or partials not 16-byte aligned.
 extern "C" int selective_scan_bwd_f32(const float* dt, const float* a, const float* b,
                                       const float* c, const float* x, const float* dy,
                                       const float* states, float* ddt, float* dx,
@@ -412,8 +448,9 @@ extern "C" int selective_scan_bwd_f32(const float* dt, const float* a, const flo
 }
 
 // The layout the wrapper allocates for `d_inner` and `d_state`: writes
-// {time steps between saved states, dB / dC partial slices} to `out` and
-// returns 0, or returns cudaErrorInvalidValue.
+// {time steps between saved states, dB / dC partial slices (one per 32
+// channels of every block)} to `out` and returns 0, or returns
+// cudaErrorInvalidValue.
 extern "C" int selective_scan_bwd_layout(int d_inner, int d_state, int* out) {
   int channels;  // channels a block
   switch (d_state) {
@@ -425,4 +462,16 @@ extern "C" int selective_scan_bwd_layout(int d_inner, int d_state, int* out) {
   out[0] = kChunk;
   out[1] = (d_inner + channels - 1) / channels * (channels / 32);
   return 0;
+}
+
+// The kernel's residency at `d_state` (its 16-byte-copy instantiation):
+// writes {blocks an SM, registers a thread, dynamic shared bytes a block,
+// local (spill) bytes a thread} to `out`; returns a CUDA error code.
+extern "C" int selective_scan_bwd_occupancy(int d_state, int* out) {
+  switch (d_state) {
+    case 4: return static_cast<int>(occupancy<4>(out));
+    case 8: return static_cast<int>(occupancy<8>(out));
+    case 16: return static_cast<int>(occupancy<16>(out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -56,6 +56,8 @@ def _bwd_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.selective_scan_bwd_layout.restype = ctypes.c_int
     lib.selective_scan_bwd_layout.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.selective_scan_bwd_occupancy.restype = ctypes.c_int
+    lib.selective_scan_bwd_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -66,6 +68,17 @@ def bwd_layout(d_inner: int, d_state: int) -> dict[str, int]:
     if _bwd_library().selective_scan_bwd_layout(d_inner, d_state, out) != 0:
         raise ValueError(f"d_state {d_state} has no kernel instantiation {STATE_WIDTHS}")
     return dict(zip(("time_chunk", "slices"), out))
+
+
+def bwd_occupancy(d_state: int) -> dict[str, int]:
+    """The backward kernel's residency on the current card at ``d_state``:
+    blocks an SM, registers a thread, dynamic shared bytes a block and
+    local (spill) bytes a thread, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 4)()
+    rc = _bwd_library().selective_scan_bwd_occupancy(d_state, out)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_bwd_occupancy({d_state}) failed: cudaError {rc}")
+    return dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"), out))
 
 
 def tiles(d_state: int) -> dict[str, int]:

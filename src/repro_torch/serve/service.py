@@ -187,6 +187,23 @@ class _PlacementTable(NamedTuple):
     slab_id: torch.Tensor  # (P_pad,)
 
 
+class _RecordedFuture(Future):
+    """An in-flight answer whose queries' metrics are recorded before any
+    waiter wakes (``add_done_callback`` runs after the waiters, so a
+    caller could see the answer, reset the metrics and then have the
+    answer counted)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.recorders: list = []
+
+    def set_result(self, result) -> None:
+        if not self.done():  # close() may have failed it already
+            for record in self.recorders:
+                record(result)
+        super().set_result(result)
+
+
 class _Pending(NamedTuple):
     key: tuple  # full answer-cache key
     sig: QuerySignature  # canonical
@@ -482,7 +499,7 @@ class AdvisorService:
                 return hit, None
             future = self._inflight.get(key)
             if future is None:
-                future = Future()
+                future = _RecordedFuture()
                 self._inflight[key] = future
                 if self.uses_search(spec, n_threads):
                     self._search_pool.submit(
@@ -497,14 +514,12 @@ class AdvisorService:
                         self._pending[group] = pg
                     pg.items.append(_Pending(key, sig, future, time.perf_counter()))
                     self._cond.notify_all()
-
-        future.add_done_callback(lambda f: self._record(f, t0))
+            # under the dispatch lock, so the completion (which retires the
+            # key under it first) runs this query's recorder
+            future.recorders.append(lambda adv: self._record(adv, t0))
         return None, future
 
-    def _record(self, future: Future, t0: float) -> None:
-        if future.cancelled() or future.exception() is not None:
-            return
-        adv = future.result()
+    def _record(self, adv, t0: float) -> None:
         self.metrics.record_query(adv.tier, time.perf_counter() - t0)
         self.metrics.record_fidelity(getattr(adv, "fidelity", "exact"))
 
@@ -611,13 +626,12 @@ class AdvisorService:
                 return hit, None
             future = self._inflight.get(key)
             if future is None:
-                future = Future()
+                future = _RecordedFuture()
                 self._inflight[key] = future
                 self._search_pool.submit(
                     self._run_schedule, spec, int(n_threads), canon, model, key, future
                 )
-
-        future.add_done_callback(lambda f: self._record(f, t0))
+            future.recorders.append(lambda adv: self._record(adv, t0))
         return None, future
 
     def _run_schedule(self, machine: MachineSpec, n_threads: int, canon: tuple,

@@ -621,6 +621,15 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 200, 100, 80, {}),
     (1, 16, 2, 300, 300, 128, dict(window=100)),
     (1, 2, 1, 333, 333, 256, dict(logit_cap=5.0)),
+    # the float32 kernel's tile edges (64 x 64 score tiles, 32 x 32 at dh
+    # 256; only tiles the diagonal, the window or a ragged end crosses test
+    # each element): Skv no multiple of 64, a window edge inside a 64-key
+    # tile, dh 256 with the soft-cap, Sq > Skv, GQA 8:1
+    (1, 4, 2, 150, 190, 64, {}),
+    (1, 4, 2, 260, 260, 128, dict(window=90)),
+    (1, 2, 1, 150, 150, 256, dict(logit_cap=5.0)),
+    (1, 4, 2, 200, 130, 64, {}),
+    (1, 16, 2, 140, 140, 80, dict(window=70)),
 ]
 # each gradient within this share of its largest magnitude: float32
 # products in both, bf16 outputs rounded once
@@ -667,6 +676,28 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, 
         G = H // Kv
         _, dk1, dv1 = attention_bwd_ref(q[:, ::G], k, v, dout[:, ::G], **kwargs)
         assert max(_rel_to_scale(dk1, want[1]), _rel_to_scale(dv1, want[2])) > FLASH_BWD_TOL[dtype]
+
+
+def test_f32_flash_backward_reads_unaligned_views(cuda):
+    """float32 operands whose base lies 4 bytes off 16 take the 4-byte
+    copies and stores: the gradients equal, bit for bit, those from the same
+    values at aligned addresses."""
+    q, k, v = _qkv(12, 1, 4, 2, 100, 100, 64, torch.float32, cuda, qk_std=1.0)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    lse = torch.empty((1, 4, 100), device=cuda)
+    out = flash_kernel.flash_attention(q, k, v, lse=lse)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    want = flash_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
+    grads = tuple(shifted(torch.zeros_like(t)) for t in (q, k, v))
+    got = flash_kernel.flash_attention_bwd(shifted(q), shifted(k), shifted(v), shifted(out),
+                                           shifted(dout), lse, grads=grads)
+    assert all(g.data_ptr() % 16 != 0 for g in got)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_bf16_flash_backward_rejects_a_view_tma_cannot_read(cuda):
@@ -764,7 +795,12 @@ def test_mha_flash_gradients_on_the_card_match_cpu(cuda, dtype):
         assert _rel_to_scale(g, w) <= FLASH_BWD_TOL[dtype]
 
 
-@pytest.mark.parametrize("B,S,di,n", SHAPES)
+# the backward's own edges: 32 / 64 / 128-channel blocks at N = 16 / 8 / 4
+# (d_inner no multiple of them) and S ending inside a 16-step chunk
+SCAN_BWD_SHAPES = SHAPES + [(2, 203, 200, 16), (2, 150, 100, 8), (1, 77, 300, 4)]
+
+
+@pytest.mark.parametrize("B,S,di,n", SCAN_BWD_SHAPES)
 def test_scan_backward_kernel_matches_plain_version(cuda, B, S, di, n):
     """ddt, dA, dB, dC and dx from the forward's saved chunk states, at
     rel 1e-4 of each gradient's scale; one launch a call; two calls give
@@ -785,6 +821,42 @@ def test_scan_backward_kernel_matches_plain_version(cuda, B, S, di, n):
         assert g.shape == w.shape, name
         assert _rel_to_scale(g, w) <= 1e-4, name
         assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_scan_backward_partials_do_not_depend_on_the_slices(cuda, n):
+    """dB and dC come back as partial slices (one per 32-channel set of a
+    block) summed by the wrapper: at three slice counts they match the plain
+    version within rel 1e-5 of their scale, and channels repeated m times
+    give m times the one-copy dB and dC (rel 1e-6)."""
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+
+    B, S, tile = 2, 75, 32
+    base = _inputs(13, B, S, tile, n, cuda)
+    dy = _inputs(14, B, S, tile, n, cuda)[4]
+    one, slices = None, set()
+    for m in (1, 3, 5):
+        dt, a, b, c, x = (t.repeat(1, 1, m) if t.dim() == 3 and t.shape[-1] == tile
+                          else t.repeat(m, 1) if t.dim() == 2 else t for t in base)
+        dym = dy.repeat(1, 1, m)
+        slices.add(scan_kernel.bwd_layout(tile * m, n)["slices"])
+        _, states = scan_kernel.selective_scan(dt, a, b, c, x, save_states=True)
+        got = scan_kernel.selective_scan_bwd(dt, a, b, c, x, dym, states)
+        want = selective_scan_bwd_ref(dt, a, b, c, x, dym)
+        for name, g, w in zip(("ddt", "da", "db", "dc", "dx"), got, want):
+            assert _rel_to_scale(g, w) <= 1e-5, (m, name)
+        if m == 1:
+            one = got
+        for g, g1 in zip(got[2:4], one[2:4]):
+            assert _rel_to_scale(g, m * g1) <= 1e-6, m
+    assert len(slices) == 3, slices
+
+
+def test_scan_backward_kernel_keeps_its_state_in_registers(cuda):
+    """At N = 16 the backward keeps its chunk's states and exponentials in
+    registers without spilling, and two blocks fit an SM."""
+    occupancy = scan_kernel.bwd_occupancy(16)
+    assert occupancy["local_bytes"] == 0 and occupancy["blocks_per_sm"] >= 2, occupancy
 
 
 def test_scan_backward_kernel_reads_unaligned_views(cuda):

@@ -630,3 +630,29 @@ def test_advisor_cli_takes_a_deadline(tmp_path):
     snap = json.loads(out.read_text())
     assert snap["fidelity_counts"]["exact"] == 40 and snap["degraded_rate"] == 0.0
     assert snap["tier_counts"]["degraded"] == 0
+
+
+def test_metrics_reset_after_warmup_counts_only_the_stream(monkeypatch):
+    """A query's metrics are recorded before its answer wakes the caller,
+    so ``serve_stream``'s reset after the warm-up leaves exactly the
+    stream's queries counted, however late the recording would run."""
+    from repro_torch.launch.advisor_serve import serve_stream
+
+    record = AdvisorService._record
+
+    def slow_record(self, *args):  # the recording lags the batch's answer
+        time.sleep(0.2)
+        record(self, *args)
+
+    monkeypatch.setattr(AdvisorService, "_record", slow_record)
+    svc = AdvisorService(device=CPU, max_wait_s=0.002)
+    try:
+        snap = serve_stream(svc, 12, pool=2, hit_fraction=0.5, search_fraction=0.0,
+                            workers=2, deadline_s=WAIT)
+        time.sleep(0.5)  # a recording still pending would land here
+        late = svc.metrics.snapshot()
+    finally:
+        svc.close()
+    for counted in (snap, late):
+        assert sum(counted["tier_counts"].values()) == 12
+        assert sum(counted["fidelity_counts"].values()) == 12
