@@ -10,9 +10,9 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    and float32) and K2's backward included (all started together), with
    each library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2)
    instructions counted in its SASS (both bf16 K1 libraries must hold
-   HGMMA), and each kernel's registers, shared memory and spills as ptxas
-   reports them (no float32 K1 backward and no N = 16 K2 backward kernel
-   may spill);
+   HGMMA), and each kernel's registers, shared memory, stack and local
+   bytes as the built library records them (no float32 K1 backward and no
+   N = 16 K2 backward kernel may spill);
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
    width (B=2, S=2048, d_inner=8192, N=16) and at a long prompt of one
    sequence (B=1, S=8192), each held against the plain version, with its
@@ -317,32 +317,21 @@ def sass_counts(lib: Path) -> dict[str, int]:
             for op in ("HGMMA", "HMMA", "MUFU.EX2")}
 
 
-def sass_sizes(lib: Path) -> dict[str, int]:
-    """Each kernel's instruction count in a library's SASS (the kernels'
-    loops are unrolled, so this is the work of a chunk or a tile)."""
+def resource_usage(lib: Path) -> list[dict]:
+    """Each kernel's registers, static shared memory, stack frame and
+    local (spill) bytes as the built library records them
+    (``cuobjdump -res-usage``), so a library already built reports too."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+    text = subprocess.run([cuobjdump, "-res-usage", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    sizes = {}
-    for part in sass.split("Function : ")[1:]:
-        name, body = part.split("\n", 1)
-        sizes[name.strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
-    return sizes
-
-
-def ptxas_report(log: str) -> list[dict]:
-    """Each kernel's registers, static shared memory and spills from
-    nvcc's ``-Xptxas -v`` output."""
     kernels = []
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
+    for line in text.splitlines():
+        if m := re.search(r"Function (\S+?):?\s*$", line):
             kernels.append({"kernel": m.group(1)})
-        elif kernels and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            kernels[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
-            smem = re.search(r"(\d+) bytes smem", line)
-            kernels[-1].update(registers=int(m.group(1)),
-                               static_smem_bytes=int(smem.group(1)) if smem else 0)
+        elif kernels and (m := re.search(
+                r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", line)):
+            kernels[-1].update(registers=int(m.group(1)), stack_bytes=int(m.group(2)),
+                               static_smem_bytes=int(m.group(3)), local_bytes=int(m.group(4)))
     return kernels
 
 
@@ -360,17 +349,13 @@ def phase_build() -> None:
     for lib in libs:
         check(lib.exists(), f"{lib} was not built")
     sass = {src.name: sass_counts(lib) for src, lib in zip(sources, libs)}
-    ptxas = {src.name: ptxas_report(build.BUILD_LOGS.get(src.name, "")) for src in sources}
-    f32_bwd_source = flash_kernel.BWD_SOURCES[torch.float32]
-    sizes = {src.name: sass_sizes(lib) for src, lib in zip(sources, libs)
-             if src in (scan_kernel.BWD_SOURCE, f32_bwd_source)}
+    usage = {src.name: resource_usage(lib) for src, lib in zip(sources, libs)}
     emit(
         "build",
         seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in libs],
         sass_instructions=sass,
-        sass_instructions_per_kernel=sizes,
-        ptxas=ptxas,
+        resource_usage=usage,
         selective_scan_tiles={n: scan_kernel.tiles(n) for n in scan_kernel.STATE_WIDTHS},
     )
     for bf16 in (flash_kernel.SOURCES[torch.bfloat16].name,
@@ -379,10 +364,15 @@ def phase_build() -> None:
     scan = scan_kernel.SOURCE.name
     check(sass[scan]["MUFU.EX2"] > 0, f"{scan} has no MUFU.EX2 in its SASS")
     # the float32 K1 backward (every instantiation) and K2's backward at
-    # N = 16 keep their accumulators and chunk states in registers
-    spilled = [k["kernel"] for k in ptxas[f32_bwd_source.name] if k.get("spill_stores", 0)]
-    spilled += [k["kernel"] for k in ptxas[scan_kernel.BWD_SOURCE.name]
-                if "ILi16E" in k["kernel"] and k.get("spill_stores", 0)]
+    # N = 16 keep nothing in local memory (a spill)
+    f32_bwd, scan_bwd = flash_kernel.BWD_SOURCES[torch.float32].name, scan_kernel.BWD_SOURCE.name
+    for name in (f32_bwd, scan_bwd):
+        check(len(usage[name]) >= 2 and all("registers" in k for k in usage[name]),
+              f"cuobjdump reported no resource usage for {name}: {usage[name]}")
+    checked = usage[f32_bwd] + [k for k in usage[scan_bwd] if "ILi16E" in k["kernel"]]
+    check(any("ILi16E" in k["kernel"] for k in usage[scan_bwd]),
+          f"{scan_bwd} has no N = 16 kernel in its resource usage")
+    spilled = [k["kernel"] for k in checked if k["local_bytes"] or k["stack_bytes"]]
     check(not spilled, f"backward kernels spill registers: {spilled}")
 
 

@@ -21,19 +21,19 @@
 // dx, 5 x 134 MB (0.20 ms at 3.35 TB/s), and does about 26 float32
 // operations per (b, t, d, n), 537 M of them (0.21 ms at 67 TFLOP/s).
 //
-// The first design (PR 18) took 0.802 ms there, 26% of that bound (1.580
-// ms at B=1, S=8192; H100 80GB HBM3, 700 W).  It kept the chunk's 16
-// recomputed states and its per-step ddt/dx partials in registers, 255 a
-// thread with 40-76 bytes of spills, and took each exponential twice (to
-// recompute the states and again in the reverse pass).
+// The first design took 0.802 ms there, 26% of that bound (1.580 ms at
+// B=1, S=8192; H100 80GB HBM3, 700 W).  It kept the chunk's 16 recomputed
+// states and its per-step ddt/dx partials in registers, 255 a thread with
+// 40-76 bytes of spills, and took each exponential twice (to recompute the
+// states and again in the reverse pass).
 //
 // This design:
 //
 // * One exponential.  Recomputing a chunk keeps exp(dt_t A) beside each
 //   state h_t in registers (a lane's 4 states x 16 steps of each); the
 //   reverse pass reads both.  The per-step ddt/dx partials leave the
-//   registers for a shared tile, so nothing spills: about 210 registers a
-//   thread, two blocks an SM.
+//   registers for a shared tile, so nothing spills at N = 16: 230
+//   registers a thread, two blocks an SM.
 // * Lanes.  kThreads = 128 a block over one batch row; warp w holds states
 //   4 (w % (N/4)) .. +3 of 32 channels, one a lane, so B_t and C_t reach a
 //   warp as one uniform 16-byte shared load.  A block covers 32 channels
@@ -52,16 +52,18 @@
 //   copies where d_inner % 4 == 0 and every base is 16-byte aligned, else
 //   4-byte; past S or d_inner zero-filled, so those steps leave lambda 0).
 //
-// What holds it at about 0.73 ms at the falcon shape (chip_smoke, PR 20,
-// H100 80GB HBM3, 700 W), 29% of its bound, is the instruction stream:
-// the SASS of the N = 16 kernel holds 2,240 instructions for its unrolled
-// 16-step chunk, 35 per (b, t, d, n) (12 float operations, the
-// exponential, the loads, the 9-shuffle dB/dC butterfly with its 14
-// selects, the partial stores).  Designs that moved work elsewhere were
-// slower: the chunk's states in shared memory (bound by shared-memory
-// wavefronts), dB/dC reduced through shared memory or summed per block
-// before the store, and two channels a lane (fewer shuffles per element,
-// but 255 registers and twice the exponentials).
+// What holds it at about 0.73 ms at the falcon shape (H100 80GB HBM3,
+// 700 W), 29% of its bound, is its instruction stream at about three
+// quarters of the SMs' issue rate: the SASS of the N = 16 kernel holds
+// 2,240 instructions for its unrolled 16-step chunk, 35 per (b, t, d, n)
+// (12 float operations, the exponential, the loads, the 9-shuffle dB/dC
+// butterfly with its 14 selects, the partial stores).  Four blocks an SM
+// (at most 128 registers: the exponentials of a chunk's first half parked
+// in shared memory and its first half's states recomputed from them, a
+// second barrier a chunk) ran at 0.90 ms, its SASS 2,848 instructions a
+// chunk; summing dB/dC over a cluster of four blocks through distributed
+// shared memory, for one slice per 128 channels, 1.33 ms; two channels
+// and two states a lane 0.97-1.01 ms (PERF.md section 6 lists them).
 
 #include <cuda_runtime.h>
 

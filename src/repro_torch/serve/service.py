@@ -198,10 +198,12 @@ class _RecordedFuture(Future):
         self.recorders: list = []
 
     def set_result(self, result) -> None:
-        if not self.done():  # close() may have failed it already
-            for record in self.recorders:
-                record(result)
-        super().set_result(result)
+        try:
+            if not self.done():  # close() may have failed it already
+                for record in self.recorders:
+                    record(result)
+        finally:  # a failing recorder still resolves the answer
+            super().set_result(result)
 
 
 class _Pending(NamedTuple):

@@ -796,8 +796,10 @@ def test_mha_flash_gradients_on_the_card_match_cpu(cuda, dtype):
 
 
 # the backward's own edges: 32 / 64 / 128-channel blocks at N = 16 / 8 / 4
-# (d_inner no multiple of them) and S ending inside a 16-step chunk
-SCAN_BWD_SHAPES = SHAPES + [(2, 203, 200, 16), (2, 150, 100, 8), (1, 77, 300, 4)]
+# (d_inner no multiple of them) and S ending inside a 16-step chunk, in its
+# first or its second half
+SCAN_BWD_SHAPES = SHAPES + [(2, 203, 200, 16), (2, 150, 100, 8), (1, 77, 300, 4),
+                            (1, 44, 330, 16), (2, 90, 160, 8)]
 
 
 @pytest.mark.parametrize("B,S,di,n", SCAN_BWD_SHAPES)

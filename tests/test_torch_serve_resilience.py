@@ -656,3 +656,19 @@ def test_metrics_reset_after_warmup_counts_only_the_stream(monkeypatch):
     for counted in (snap, late):
         assert sum(counted["tier_counts"].values()) == 12
         assert sum(counted["fidelity_counts"].values()) == 12
+
+
+def test_failing_metrics_recorder_still_answers(monkeypatch):
+    """A metrics recorder that raises does not keep the answer from its
+    waiter: the future resolves whatever its recorders do."""
+    def broken(self, *args):
+        raise RuntimeError("metrics sink down")
+
+    monkeypatch.setattr(AdvisorService, "_record", broken)
+    svc = AdvisorService(device=CPU, max_wait_s=0.002)
+    try:
+        fp = svc.register(port.E5_2630_V3, machine_id="m")
+        advice = svc.submit(fp, _sigs(1, seed=21)[0], 8).result(timeout=WAIT)
+        assert advice.fidelity == "exact"
+    finally:
+        svc.close()
