@@ -702,12 +702,13 @@ def phase_flash_attention() -> dict:
 # the bf16 kernel also rounds P and dS to bf16, 2^-9 relative, for its
 # tensor-core products)
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# K1 backward's time at each case on the first CUDA-core kernel (PR 18),
-# which computed bf16 too before the tensor-core kernel took that dtype and
+# K1 backward's time at each case on the first CUDA-core kernel, which
+# computed bf16 too before the tensor-core kernel took that dtype and
 # float32 until the register-blocked kernel replaced it (PERF.md §6, on an
 # NVIDIA H100 80GB HBM3 at 700.00 W: chip_smoke for the bf16 cases and
-# llama3's float32 one, tools/kernel_ab.py against PR 19's tree, the mean
-# of its two turns, for danube long and gemma2 in float32)
+# llama3's float32 one; for danube long and gemma2 in float32 the mean of
+# two turns of tools/kernel_ab.py, commit eb47592, against the tree before
+# the register-blocked kernel)
 CUDA_CORE_BWD_MS = {
     "llama3-8b bf16": 40.641,
     "llama3-8b f32": 40.608,

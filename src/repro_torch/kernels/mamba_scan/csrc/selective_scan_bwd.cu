@@ -60,10 +60,10 @@
 // butterfly with its 14 selects, the partial stores).  Four blocks an SM
 // (at most 128 registers: the exponentials of a chunk's first half parked
 // in shared memory and its first half's states recomputed from them, a
-// second barrier a chunk) ran at 0.90 ms, its SASS 2,848 instructions a
-// chunk; summing dB/dC over a cluster of four blocks through distributed
-// shared memory, for one slice per 128 channels, 1.33 ms; two channels
-// and two states a lane 0.97-1.01 ms (PERF.md section 6 lists them).
+// second barrier a chunk) ran at 0.90 ms; summing dB/dC over a cluster
+// of four blocks through distributed shared memory, for one slice per 128
+// channels, 1.33 ms; two channels and two states a lane 0.97-1.01 ms
+// (PERF.md section 6 lists them).
 
 #include <cuda_runtime.h>
 
