@@ -363,17 +363,23 @@ def phase_build() -> None:
         check(sass[bf16]["HGMMA"] > 0, f"{bf16} has no wgmma (HGMMA) in its SASS")
     scan = scan_kernel.SOURCE.name
     check(sass[scan]["MUFU.EX2"] > 0, f"{scan} has no MUFU.EX2 in its SASS")
-    # the float32 K1 backward (every instantiation) and K2's backward at
-    # N = 16 keep nothing in local memory (a spill)
+    # the float32 K1 forward and backward (every instantiation) and K2's
+    # backward at N = 16 keep nothing in local memory (a spill)
+    f32_fwd = flash_kernel.SOURCES[torch.float32].name
     f32_bwd, scan_bwd = flash_kernel.BWD_SOURCES[torch.float32].name, scan_kernel.BWD_SOURCE.name
-    for name in (f32_bwd, scan_bwd):
+    for name in (f32_fwd, f32_bwd, scan_bwd):
         check(len(usage[name]) >= 2 and all("registers" in k for k in usage[name]),
               f"cuobjdump reported no resource usage for {name}: {usage[name]}")
-    checked = usage[f32_bwd] + [k for k in usage[scan_bwd] if "ILi16E" in k["kernel"]]
+    # one forward kernel for each head dim, with and without the soft-cap
+    check(len(usage[f32_fwd]) == 2 * len(flash_kernel.HEAD_DIMS),
+          f"{f32_fwd}: {len(usage[f32_fwd])} kernels in its resource usage, want "
+          f"{2 * len(flash_kernel.HEAD_DIMS)}")
+    checked = (usage[f32_fwd] + usage[f32_bwd]
+               + [k for k in usage[scan_bwd] if "ILi16E" in k["kernel"]])
     check(any("ILi16E" in k["kernel"] for k in usage[scan_bwd]),
           f"{scan_bwd} has no N = 16 kernel in its resource usage")
     spilled = [k["kernel"] for k in checked if k["local_bytes"] or k["stack_bytes"]]
-    check(not spilled, f"backward kernels spill registers: {spilled}")
+    check(not spilled, f"kernels spill registers: {spilled}")
 
 
 def scan_inputs(B, S, di, n, seed, device):
@@ -534,6 +540,15 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> b
 # the H100 at 0.5-scaled inputs (1.95e-3).  The bf16 kernel also rounds its
 # probabilities to bf16 (2^-9 relative a weight) inside that tolerance.
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 1e-2)}
+# K1's float32 forward at each float32 case on the first CUDA-core kernel,
+# before the register-blocked kernel replaced it (PERF.md §6, NVIDIA H100
+# 80GB HBM3 at 700.00 W: chip_smoke for llama3 and gemma2; danube the mean
+# of four turns of tools/flash_f32_ab.py with the first kernel's source)
+CUDA_CORE_FWD_MS = {
+    "llama3-8b prefill f32": 6.4259,
+    "gemma2-9b prefill f32": 36.938,
+    "h2o-danube-1.8b prefill f32": 13.487,
+}
 
 
 def chunked_ref(q, k, v, options: dict, rows: int) -> torch.Tensor:
@@ -578,8 +593,9 @@ def phase_flash_attention() -> dict:
     where it computes the same function: causal alone, or with a window as
     a dense mask (no call takes the soft-cap).  At llama3's bf16 shape the
     plain version with bf16 probabilities shows what the kernel's rounding
-    of P costs.  Returns the llama3-8b bf16 case's numbers for the kernels
-    line."""
+    of P costs.  Each float32 case prints the first CUDA-core kernel's time
+    beside the register-blocked kernel's.  Returns the llama3-8b bf16
+    case's numbers for the kernels line."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -594,6 +610,7 @@ def phase_flash_attention() -> dict:
         ("gemma2-9b prefill bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0, None),
         ("gemma2-9b prefill f32", (1, 16, 8, 8192, 256), torch.float32, gemma2, 5.0, None),
         ("h2o-danube-1.8b prefill bf16", (1, 32, 8, 8192, 80), torch.bfloat16, danube, 1.0, 1024),
+        ("h2o-danube-1.8b prefill f32", (1, 32, 8, 8192, 80), torch.float32, danube, 1.0, 1024),
         # GQA 8:1, the widest query-head group on a served path
         ("qwen3-moe-30b-a3b prefill bf16", (2, 32, 4, 2048, 128), torch.bfloat16, {}, 1.0, None),
     ]
@@ -669,6 +686,7 @@ def phase_flash_attention() -> dict:
             max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms,
         )
+        first_ms = CUDA_CORE_FWD_MS.get(label)
         emit(
             "flash_attention",
             case=label,
@@ -692,6 +710,10 @@ def phase_flash_attention() -> dict:
             bytes_bound_ms=bytes_ms,
             ops_bound_ms=ops_ms,
             kernel_tflops=ops / kernel_ms / 1e9,
+            share_of_bound=bound_ms / kernel_ms,
+            route="wgmma+tma" if dtype == torch.bfloat16 else "cuda cores",
+            cuda_core_kernel_ms=first_ms,
+            speedup_vs_cuda_core_kernel=None if first_ms is None else first_ms / kernel_ms,
         )
     return results["llama3-8b prefill bf16"]
 

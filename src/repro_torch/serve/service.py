@@ -61,6 +61,7 @@ the schedule worker and the deadline clock.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import threading
 import time
@@ -90,6 +91,8 @@ from repro_torch.core.numa.workload import Workload, mixed_workload
 from repro_torch.serve.cache import LRUCache
 from repro_torch.serve.faults import NO_FAULTS, FaultInjector
 from repro_torch.serve.metrics import ServiceMetrics
+
+_log = logging.getLogger(__name__)
 
 
 class ServiceClosedError(RuntimeError):
@@ -198,12 +201,15 @@ class _RecordedFuture(Future):
         self.recorders: list = []
 
     def set_result(self, result) -> None:
-        try:
-            if not self.done():  # close() may have failed it already
-                for record in self.recorders:
+        if not self.done():  # close() may have failed it already
+            for record in self.recorders:
+                # one raising recorder neither drops the others nor keeps
+                # the answer unresolved; logged as a failing done-callback is
+                try:
                     record(result)
-        finally:  # a failing recorder still resolves the answer
-            super().set_result(result)
+                except Exception:
+                    _log.exception("a metrics recorder of %r raised", self)
+        super().set_result(result)
 
 
 class _Pending(NamedTuple):

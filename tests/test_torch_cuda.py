@@ -171,8 +171,8 @@ FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(ato
 @pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, kwargs):
     """Ragged sizes included: 300 and 77 / 301 rows are no multiple of
-    the float32 kernel's 64-row (32 at dh 256) tiles nor of the bf16
-    kernel's 128-row q and 128-key (64 at dh 256) KV tiles."""
+    the float32 kernel's 128-row (64 at dh 256) q and 64-key KV tiles nor
+    of the bf16 kernel's 128-row q and 128-key (64 at dh 256) KV tiles."""
     q, k, v = _qkv(0, B, H, Kv, Sq, Skv, dh, dtype, cuda)
     before = flash_kernel.flash_attention.launches
     got = flash_kernel.flash_attention(q, k, v, **kwargs)
@@ -183,7 +183,7 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, dh, 
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
 
 
-def _plain_dropping_keys(q, k, v, keys, *, causal=True, window=0):
+def _plain_dropping_keys(q, k, v, keys, *, causal=True, window=0, logit_cap=0.0):
     """The plain version with the keys in ``keys`` masked out as well: what
     a kernel that skipped one KV tile, mis-masked it or read a stale ring
     stage in its place would be near."""
@@ -191,6 +191,8 @@ def _plain_dropping_keys(q, k, v, keys, *, causal=True, window=0):
     Kv, Skv = k.shape[1], k.shape[2]
     k, v = (t.float().repeat_interleave(H // Kv, dim=1) for t in (k, v))
     logits = q.float() @ k.transpose(-1, -2) * dh**-0.5
+    if logit_cap > 0.0:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
     rows = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
     cols = torch.arange(Skv, device=q.device)[None, :]
     ok = ((cols < keys.start) | (cols >= keys.stop)) & (cols <= rows if causal else True)
@@ -225,6 +227,75 @@ def test_flash_kernel_edges_match_plain_version(cuda, dtype, B, H, Kv, Sq, Skv, 
         torch.testing.assert_close(
             dropped[:, :, rows].float(), want[:, :, rows].float(), **FLASH_TOL[dtype]
         )
+
+
+# the float32 kernel's own edges (128-row q tiles, 64 at dh 256, and 64-key
+# KV tiles; only tiles the diagonal, the window's edge or a ragged end
+# crosses test each element): a window edge inside a q tile, Sq < Skv with
+# the diagonal mid-tile, ragged Sq and Skv at dh 16, 80 and 256 (the cap at
+# dh 256 and, with a window, at dh 32)
+F32_EDGE_CASES = [
+    (1, 4, 2, 256, 256, 128, dict(window=96)),
+    (1, 4, 2, 100, 190, 64, {}),
+    (1, 4, 2, 77, 150, 16, {}),
+    (2, 4, 2, 130, 201, 80, dict(window=70)),
+    (1, 2, 1, 99, 131, 256, dict(logit_cap=5.0)),
+    (1, 8, 2, 150, 150, 32, dict(window=50, logit_cap=5.0)),
+]
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,dh,kwargs", F32_EDGE_CASES)
+def test_f32_flash_kernel_tile_edges_match_plain_version(cuda, B, H, Kv, Sq, Skv, dh, kwargs):
+    """The float32 kernel at q and k of std 1: the output and the row
+    log-sum-exp match the plain version, two calls give equal bits, and the
+    plain version with the middle KV tile of the walk dropped lies outside
+    the tolerance on the rows past that tile, so a kernel that lost or
+    mis-masked that tile would fail."""
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+
+    q, k, v = _qkv(13, B, H, Kv, Sq, Skv, dh, torch.float32, cuda, qk_std=1.0)
+    lse = torch.empty((B, H, Sq), device=cuda)
+    got = flash_kernel.flash_attention(q, k, v, lse=lse, **kwargs)
+    again = flash_kernel.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = attention_ref(q, k, v, **kwargs)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **kwargs), **FLASH_TOL[torch.float32])
+    tile = Skv // 64 // 2
+    keys = range(64 * tile, min(64 * tile + 64, Skv))
+    dropped = _plain_dropping_keys(q, k, v, keys, **kwargs)
+    first = keys.stop - (Skv - Sq)  # the first q row past the tile (all rows: a one-tile walk)
+    rows = slice(first if 0 <= first < Sq else 0, None)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(dropped[:, :, rows], want[:, :, rows], **FLASH_TOL[torch.float32])
+
+
+def test_f32_flash_forward_reads_unaligned_views(cuda):
+    """float32 operands whose base lies 4 bytes off 16, or whose rows lie 66
+    floats apart, take the 4-byte copies and stores: the output and the row
+    log-sum-exp equal, bit for bit, those from the same values at aligned
+    addresses, which match the plain version."""
+    q, k, v = _qkv(14, 1, 4, 2, 100, 100, 64, torch.float32, cuda, qk_std=1.0)
+    lse_want = torch.empty((1, 4, 100), device=cuda)
+    want = flash_kernel.flash_attention(q, k, v, lse=lse_want, window=40)
+    torch.testing.assert_close(want, attention_ref(q, k, v, window=40), **FLASH_TOL[torch.float32])
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    def padded(t):
+        wide = torch.zeros(*t.shape[:3], t.shape[3] + 2, device=cuda)
+        wide[..., : t.shape[3]] = t
+        return wide[..., : t.shape[3]]
+
+    for view in (shifted, padded):
+        out = view(torch.zeros_like(q))
+        assert out.data_ptr() % 16 != 0 or out.stride(2) % 4 != 0
+        lse = torch.empty_like(lse_want)
+        got = flash_kernel.flash_attention(view(q), view(k), view(v), window=40, out=out, lse=lse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(lse, lse_want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -672,3 +672,36 @@ def test_failing_metrics_recorder_still_answers(monkeypatch):
         assert advice.fidelity == "exact"
     finally:
         svc.close()
+
+
+def test_raising_recorder_does_not_drop_a_coalesced_querys_metrics(monkeypatch, caplog):
+    """Two queries coalesced on one in-flight key each add a recorder to
+    the shared answer.  The first recorder raises: both queries are still
+    answered, the second is still counted, and the failure is logged, as
+    ``concurrent.futures`` logs a raising done-callback."""
+    record = AdvisorService._record
+    calls = []
+
+    def first_raises(self, *args):
+        calls.append(args)
+        if len(calls) == 1:
+            raise RuntimeError("metrics sink down")
+        record(self, *args)
+
+    monkeypatch.setattr(AdvisorService, "_record", first_raises)
+    svc = AdvisorService(device=CPU, max_batch=8, max_wait_s=0.5)
+    try:
+        fp = svc.register(port.E5_2630_V3, machine_id="m")
+        sig = _sigs(1, seed=22)[0]
+        with caplog.at_level("ERROR", logger="repro_torch.serve.service"):
+            first, second = svc.submit(fp, sig, 8), svc.submit(fp, sig, 8)
+            answers = [f.result(timeout=WAIT) for f in (first, second)]
+        snap = svc.metrics.snapshot()
+    finally:
+        svc.close()
+    assert all(a.fidelity == "exact" for a in answers)
+    assert answers[0].placement == answers[1].placement
+    assert len(calls) == 2  # one in-flight answer, two recorders
+    assert sum(snap["tier_counts"].values()) == 1
+    assert sum(snap["fidelity_counts"].values()) == 1
+    assert any(r.exc_info and "metrics sink down" in str(r.exc_info[1]) for r in caplog.records)
