@@ -176,7 +176,7 @@ struct PlainRows {
   __device__ __forceinline__ static int at(int r, int c) { return r * kLd + 4 * c; }
 };
 
-// Issue the copies of ROWS rows of DH floats, `ss` elements apart from
+// Start the copies of ROWS rows of DH floats, `ss` elements apart from
 // `src`, into `dst` (layout LAYOUT); rows at or past `rows` are zero-filled.
 template <int DH, int ROWS, typename LAYOUT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, long long ss, int rows,
