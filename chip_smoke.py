@@ -23,14 +23,17 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    cap), each in bf16 (the tensor-core kernel) and float32 (the CUDA-core
    kernel), and at h2o-danube-1.8b's (B=1, H=32, Kv=8, S=8192, dh=80,
    window 4096) and qwen3-moe-30b-a3b's (B=2, H=32, Kv=4, S=2048,
-   dh=128: GQA 8:1) in bf16, with its time, its bound and PyTorch's SDPA
-   beside it;
+   dh=128: GQA 8:1) in bf16, and whisper-medium's encoder (B=8, H=Kv=16,
+   S=1500, dh=64, non-causal) and cross-attention (Sq=448 against
+   Skv=1500, non-causal) in bf16 and float32, with its time, its bound and
+   PyTorch's SDPA beside it;
    flash_attention_backward — K1's backward kernels (bf16 on the tensor
    cores, float32 register-blocked on CUDA cores) against the plain
    backward at llama3-8b's shape (bf16 and float32), h2o-danube-1.8b's
    training micro-batch (B=2 x 2,048) and long row (B=1 x 8,192, window
    4,096; bf16 and float32), gemma2-9b's (dh 256, window, soft-cap 50;
-   bf16 and float32) and qwen3-moe-30b-a3b's (GQA 8:1): float32 within
+   bf16 and float32), qwen3-moe-30b-a3b's (GQA 8:1) and whisper-medium's
+   cross-attention (bf16 and float32): float32 within
    rel 1e-4, bf16 2e-2 of each gradient's scale, two calls bit-equal, and
    dropping the window, the soft-cap or the GQA group sum moving the plain
    gradient past that; its time beside 2.5 times the forward's operations
@@ -73,20 +76,30 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    answer fidelity-tagged), the recovery time, and a live recalibration
    under a sustained stream (NaN rows rejected at ingest, one swap, one
    guard rollback, no torn read, epoch-1 objectives against the CPU port,
-   the stream's p99 with and without the fit); then each ladder rung
-   forced once;
+   the stream's p99 with and without the fit); the slowest chaos
+   queries' wall time split into the wait for the exact tiers and the
+   ladder; then each ladder rung forced once;
 12. lm_reduced — the reduced llama3-8b, gemma2-9b, h2o-danube-1.8b,
-   falcon-mamba-7b, jamba-1.5-large-398b, mixtral-8x22b and
-   qwen3-moe-30b-a3b: prefill and generate on the card against the port
-   on the CPU with the same weights, K1 launched once per attention layer
-   and K2 once per mamba layer;
-   lm_reduced_train — one float32 train step of each of those seven on the
+   falcon-mamba-7b, jamba-1.5-large-398b, mixtral-8x22b,
+   qwen3-moe-30b-a3b, whisper-medium (40 encoder frames) and internvl2-2b
+   (8 patch embeddings): prefill and generate on the card against the
+   port on the CPU with the same weights, K1 launched once per attention
+   call (encoder, decoder and cross) and K2 once per mamba layer;
+   lm_reduced_train — one float32 train step of each of those nine on the
    card against the port on the CPU with the same weights and batch: loss
    within rel 1e-4, gradient norm within rel 1e-3, K1 and K2 forward and
-   backward once per attention and mamba layer;
+   backward once per attention call and mamba layer;
 13. lm_danube — h2o-danube-1.8b at full width and depth (random bf16
    weights from a seed): prefill of 2 x 8192 tokens, where the 4096-token
    window acts, K1 (dh 80) launched once per layer;
+   lm_whisper — whisper-medium at full size: prefill of 8 x 1,500
+   encoder frames x 448 decoder tokens (K1 72 times), generation at B=4
+   with the cross cache filled once from the encoder (4 prompt tokens +
+   60 new), and the decode path's logits at the last prompt position
+   held against the prefill's in bf16 and float32;
+   lm_internvl2 — internvl2-2b at full size: prefill of 4 x (256 patch
+   embeddings + 1,792 tokens) (K1 24 times), generation on tokens
+   (4 x 64 + 32);
 14. lm_serve — llama3-8b at full width and depth (random weights from a
    seed, bf16): init, prefill of 4 x 2048 tokens (K1 launched once per
    layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
@@ -589,9 +602,11 @@ def phase_flash_attention() -> dict:
     soft-cap, and the check proves that the window and the cap each move
     the output past the tolerance.  danube's shape is held against the
     plain version run in 1,024-row chunks (whole, it would materialise
-    8.6 GB of logits several times over).  SDPA is the library yardstick
-    where it computes the same function: causal alone, or with a window as
-    a dense mask (no call takes the soft-cap).  At llama3's bf16 shape the
+    8.6 GB of logits several times over).  whisper-medium's encoder
+    (1,500 x 1,500) and cross-attention (448 x 1,500) run non-causal at
+    dh 64.  SDPA is the library yardstick where it computes the same
+    function: causal or not, alone, or with a window as a dense mask (no
+    call takes the soft-cap).  At llama3's bf16 shape the
     plain version with bf16 probabilities shows what the kernel's rounding
     of P costs.  Each float32 case prints the first CUDA-core kernel's time
     beside the register-blocked kernel's.  Returns the llama3-8b bf16
@@ -602,21 +617,37 @@ def phase_flash_attention() -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gemma2 = dict(window=4096, logit_cap=50.0)
     danube = dict(window=4096)
+    whisper = dict(causal=False)
     cases = [
-        # label, (B, H, Kv, S, dh), dtype, options, std of q and k (scores:
-        # std**2 after the dh**-0.5 scale), rows per plain-version chunk
-        ("llama3-8b prefill bf16", (4, 32, 8, 2048, 128), torch.bfloat16, {}, 1.0, None),
-        ("llama3-8b prefill f32", (4, 32, 8, 2048, 128), torch.float32, {}, 1.0, None),
-        ("gemma2-9b prefill bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0, None),
-        ("gemma2-9b prefill f32", (1, 16, 8, 8192, 256), torch.float32, gemma2, 5.0, None),
-        ("h2o-danube-1.8b prefill bf16", (1, 32, 8, 8192, 80), torch.bfloat16, danube, 1.0, 1024),
-        ("h2o-danube-1.8b prefill f32", (1, 32, 8, 8192, 80), torch.float32, danube, 1.0, 1024),
+        # label, (B, H, Kv, Sq, Skv, dh), dtype, options, std of q and k
+        # (scores: std**2 after the dh**-0.5 scale), rows per plain-version chunk
+        ("llama3-8b prefill bf16", (4, 32, 8, 2048, 2048, 128), torch.bfloat16, {}, 1.0, None),
+        ("llama3-8b prefill f32", (4, 32, 8, 2048, 2048, 128), torch.float32, {}, 1.0, None),
+        ("gemma2-9b prefill bf16", (1, 16, 8, 8192, 8192, 256), torch.bfloat16, gemma2, 5.0,
+         None),
+        ("gemma2-9b prefill f32", (1, 16, 8, 8192, 8192, 256), torch.float32, gemma2, 5.0, None),
+        ("h2o-danube-1.8b prefill bf16", (1, 32, 8, 8192, 8192, 80), torch.bfloat16, danube, 1.0,
+         1024),
+        ("h2o-danube-1.8b prefill f32", (1, 32, 8, 8192, 8192, 80), torch.float32, danube, 1.0,
+         1024),
         # GQA 8:1, the widest query-head group on a served path
-        ("qwen3-moe-30b-a3b prefill bf16", (2, 32, 4, 2048, 128), torch.bfloat16, {}, 1.0, None),
+        ("qwen3-moe-30b-a3b prefill bf16", (2, 32, 4, 2048, 2048, 128), torch.bfloat16, {}, 1.0,
+         None),
+        # whisper-medium's encoder self-attention (non-causal, MHA at dh 64,
+        # 1,500 frames: no multiple of a KV tile) and its decoder's
+        # cross-attention (448 rows against the 1,500 frames, non-causal)
+        ("whisper-medium encoder bf16", (8, 16, 16, 1500, 1500, 64), torch.bfloat16, whisper, 1.0,
+         None),
+        ("whisper-medium encoder f32", (8, 16, 16, 1500, 1500, 64), torch.float32, whisper, 1.0,
+         None),
+        ("whisper-medium cross bf16", (8, 16, 16, 448, 1500, 64), torch.bfloat16, whisper, 1.0,
+         None),
+        ("whisper-medium cross f32", (8, 16, 16, 448, 1500, 64), torch.float32, whisper, 1.0,
+         None),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for label, (B, H, Kv, S, dh), dtype, options, std, chunk in cases:
+    for label, (B, H, Kv, Sq, Skv, dh), dtype, options, std, chunk in cases:
         atol, rtol = FLASH_TOL[dtype]
 
         def normal(shape, scale):
@@ -627,17 +658,18 @@ def phase_flash_attention() -> dict:
                 return chunked_ref(q, k, v, options, chunk)
             return attention_ref(q, k, v, **options)
 
-        q, k = normal((B, H, S, dh), std), normal((B, Kv, S, dh), std)
-        v = normal((B, Kv, S, dh), 0.5)
+        q, k = normal((B, H, Sq, dh), std), normal((B, Kv, Skv, dh), std)
+        v = normal((B, Kv, Skv, dh), 0.5)
+        causal = options.get("causal", True)
         # SDPA has no soft-cap; a window it takes as a dense (S, S) mask,
         # built here, outside the timed call
         library = None
         if options.get("window") and not options.get("logit_cap"):
-            pos = torch.arange(S, device="cuda")
+            pos = torch.arange(Sq, device="cuda")
             mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - options["window"])
             library = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
-        elif not options:
-            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        elif not options.get("logit_cap"):
+            library = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
         got = flash_attention(q, k, v, **options)
         sync()
         want = plain()
@@ -664,7 +696,8 @@ def phase_flash_attention() -> dict:
                            f"(max abs {max_abs}, atol {atol}, rtol {rtol})")
         # a kernel that ignored an option would fail the check above: on
         # the last 512 rows, which the window reaches, the plain version
-        # without that option lies outside the tolerance
+        # without that option (causal=False dropped: causal) lies outside
+        # the tolerance
         tail = q[:, :, -512:]
         want_tail = attention_ref(tail, k, v, **options)
         moved = {}
@@ -678,7 +711,7 @@ def phase_flash_attention() -> dict:
         kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **options), 5)
         plain_ms = cuda_ms(plain, 1)
         library_ms = None if library is None else cuda_ms(library, 10)
-        ops, bytes_ms, ops_ms = flash_work(q, k, True, options.get("window", 0))
+        ops, bytes_ms, ops_ms = flash_work(q, k, causal, options.get("window", 0))
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         torch.cuda.empty_cache()
@@ -690,7 +723,7 @@ def phase_flash_attention() -> dict:
         emit(
             "flash_attention",
             case=label,
-            shape=dict(B=B, H=H, Kv=Kv, S=S, dh=dh),
+            shape=dict(B=B, H=H, Kv=Kv, Sq=Sq, Skv=Skv, dh=dh),
             dtype=str(dtype).removeprefix("torch."),
             options=options,
             qk_std=std,
@@ -750,9 +783,11 @@ def phase_flash_attention_backward() -> dict:
     float32, h2o-danube-1.8b's training micro-batch (B=2 x 2,048, dh 80; its
     4,096-token window then acts as causal) and a long danube row (B=1 x
     8,192, where the window acts), gemma2-9b's (dh 256, window 4,096,
-    soft-cap 50, scores driven into the cap) and qwen3-moe-30b-a3b's (GQA
-    8:1).  Two calls must give equal bits.  Each option that acts (window,
-    soft-cap) must move the plain gradient past the tolerance when dropped,
+    soft-cap 50, scores driven into the cap), qwen3-moe-30b-a3b's (GQA
+    8:1) and whisper-medium's cross-attention (448 rows against 1,500
+    frames, non-causal, dh 64; bf16 and float32).  Two calls must give
+    equal bits.  Each option that acts (window, soft-cap, causal=False)
+    must move the plain gradient past the tolerance when dropped,
     and so must GQA: the dk and dv of each group's first q-head alone, what
     a backward that did not sum the group would give.  The time stands
     beside 2.5 times the forward's operations bound (the backward's five
@@ -776,18 +811,25 @@ def phase_flash_attention_backward() -> dict:
         ("gemma2-9b bf16", (1, 16, 8, 8192, 256), torch.bfloat16, gemma2, 5.0, 1024),
         ("gemma2-9b f32", (1, 16, 8, 8192, 256), torch.float32, gemma2, 5.0, 1024),
         ("qwen3-moe-30b-a3b bf16", (2, 32, 4, 2048, 128), torch.bfloat16, {}, 1.0, None),
+        # whisper-medium's cross-attention: 448 rows against 1,500 frames
+        ("whisper-medium cross bf16", (8, 16, 16, (448, 1500), 64), torch.bfloat16,
+         dict(causal=False), 1.0, None),
+        ("whisper-medium cross f32", (8, 16, 16, (448, 1500), 64), torch.float32,
+         dict(causal=False), 1.0, None),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for label, (B, H, Kv, S, dh), dtype, options, std, rows in cases:
         tol = FLASH_BWD_TOL[dtype]
+        Sq, Skv = S if isinstance(S, tuple) else (S, S)
+        causal = options.get("causal", True)
 
         def normal(shape, scale):
             return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
-        q, k = normal((B, H, S, dh), std), normal((B, Kv, S, dh), std)
-        v, dout = normal((B, Kv, S, dh), 0.5), normal((B, H, S, dh), 1.0)
-        lse = torch.empty((B, H, S), device="cuda")
+        q, k = normal((B, H, Sq, dh), std), normal((B, Kv, Skv, dh), std)
+        v, dout = normal((B, Kv, Skv, dh), 0.5), normal((B, H, Sq, dh), 1.0)
+        lse = torch.empty((B, H, Sq), device="cuda")
         out = flash_attention(q, k, v, lse=lse, **options)
 
         def kernel():
@@ -808,7 +850,7 @@ def phase_flash_attention_backward() -> dict:
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         moved = {}
         for name in options:
-            if name == "window" and options[name] >= S:
+            if name == "window" and options[name] >= Skv:
                 continue  # the window reaches past the sequence: no row loses a key
             without = plain({o: x for o, x in options.items() if o != name})
             moved[name] = max(rel_gap(a, b) for a, b in zip(without, want))
@@ -834,16 +876,16 @@ def phase_flash_attention_backward() -> dict:
         if not options.get("logit_cap"):
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
             window = options.get("window", 0)
-            if window and window < S:
-                pos = torch.arange(S, device="cuda")
+            if window and window < Skv:
+                pos = torch.arange(Skv, device="cuda")
                 mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
                 o = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
             else:
-                o = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+                o = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
             library_ms = cuda_ms(
                 lambda: torch.autograd.grad(o, (qs, ks, vs), dout, retain_graph=True), 3)
             del o, qs, ks, vs
-        fwd_ops, _, fwd_ops_ms = flash_work(q, k, True, options.get("window", 0))
+        fwd_ops, _, fwd_ops_ms = flash_work(q, k, causal, options.get("window", 0))
         # q, o, dO read and dq written; k, v read and dk, dv written; the lse
         moved_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
         ops_ms = 2.5 * fwd_ops_ms
@@ -852,10 +894,11 @@ def phase_flash_attention_backward() -> dict:
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         results[label] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        first_ms = CUDA_CORE_BWD_MS.get(label)
         emit(
             "flash_attention_backward",
             case=label,
-            shape=dict(B=B, H=H, Kv=Kv, S=S, dh=dh),
+            shape=dict(B=B, H=H, Kv=Kv, Sq=Sq, Skv=Skv, dh=dh),
             dtype=str(dtype).removeprefix("torch."),
             options=options,
             qk_std=std,
@@ -868,8 +911,8 @@ def phase_flash_attention_backward() -> dict:
             kernels_per_call=3,
             route="wgmma+tma" if dtype == torch.bfloat16 else "cuda cores",
             kernel_ms=kernel_ms,
-            cuda_core_kernel_ms=CUDA_CORE_BWD_MS[label],
-            speedup_vs_cuda_core_kernel=CUDA_CORE_BWD_MS[label] / kernel_ms,
+            cuda_core_kernel_ms=first_ms,
+            speedup_vs_cuda_core_kernel=None if first_ms is None else first_ms / kernel_ms,
             plain_ms=plain_ms,
             library_ms=library_ms,
             library="sdpa backward" if library_ms is not None else None,
@@ -1385,66 +1428,132 @@ def percentile_ms(values, q: float):
     return float(np.percentile(values, q)) * 1e3 if len(values) else None
 
 
+def ladder_timer(service):
+    """Time each degraded query's ladder: wraps ``service._degrade`` so the
+    calling thread's ``spans.ladder_s`` holds the seconds its last query
+    spent there (the rest of the query's wall time is the wait for the
+    exact tiers).  Instrumentation of this script; the service is
+    unchanged."""
+    spans = threading.local()
+    degrade = service._degrade
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return degrade(*args, **kwargs)
+        finally:
+            spans.ladder_s = time.perf_counter() - t0
+
+    service._degrade = timed
+    return spans
+
+
+def resilience_service(fi, deadline_s: float, device: str = "cuda"):
+    """The chaos record's service: E7-4830 v3 (24 threads, the batch
+    tier) and snc2-8s (32 threads, the search tier), both warmed, with the
+    32 hot signatures cached.  Returns ``(service, sweep_fp, search_fp,
+    hot, search_sigs)``."""
+    from repro_torch.core.numa import E7_4830_V3
+    from repro_torch.launch.advisor_serve import search_machine, signature_pool
+    from repro_torch.serve import AdvisorService
+
+    service = AdvisorService(device=device, max_batch=8, max_wait_s=0.002, faults=fi,
+                             default_deadline_s=deadline_s)
+    sweep_fp = service.register(E7_4830_V3)
+    search_fp = service.register(search_machine())
+    hot = signature_pool(32, seed=0)
+    search_sigs = signature_pool(4, seed=13)
+    service.warmup(sweep_fp, 24)
+    service.warmup(search_fp, 32, search_sigs[0])
+    for sig in hot:
+        service.query(sweep_fp, sig, 24, deadline_s=60.0)
+    service.metrics.reset(keep_traces=True)
+    return service, sweep_fp, search_fp, hot, search_sigs
+
+
+def chaos_record(service, fi, sweep_fp, search_fp, hot, search_sigs, *, n_chaos: int = 1000,
+                 deadline_s: float = 0.25, search: bool = True) -> dict:
+    """benchmarks/serve_resilience.py's chaos-mixed record: ``n_chaos``
+    queries (60% hot) from 4 workers under 12 slow (0.3 s) and 8 failing
+    batches, 2 batcher deaths and 2 search failures, while one snc2-8s
+    search query runs (unless ``search`` is false).  Returns the answers,
+    each query's wall seconds and the seconds of it spent in the
+    degradation ladder, the wall time, the faults fired and the search's
+    answer; the injector is cleared on return."""
+    from repro_torch.launch.advisor_serve import signature_pool
+
+    spans = ladder_timer(service)
+    fresh = signature_pool(n_chaos, seed=7)
+    fi.inject_slow("batch", 0.3, times=12)
+    fi.inject_error("batch", times=8)
+    fi.inject_error("batcher", times=2)
+    fi.inject_error("search", times=2)
+    rng = np.random.default_rng(3)
+    fresh_iter = iter(fresh)
+    stream = [hot[int(rng.integers(len(hot)))] if rng.random() < 0.6 else next(fresh_iter)
+              for _ in range(n_chaos)]
+    walls = [0.0] * n_chaos
+    ladders = [0.0] * n_chaos
+    answers = [None] * n_chaos
+    counter = iter(range(n_chaos))
+    lock = threading.Lock()
+
+    def worker() -> None:
+        while True:
+            with lock:
+                i = next(counter, None)
+            if i is None:
+                return
+            spans.ladder_s = 0.0
+            t0 = time.perf_counter()
+            answers[i] = service.query(sweep_fp, stream[i], 24)
+            walls[i] = time.perf_counter() - t0
+            ladders[i] = spans.ladder_s
+
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    search_adv = (service.query(search_fp, search_sigs[1], 32, deadline_s=30.0)
+                  if search else None)
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a chaos worker hung")
+    fired = {site: fi.fired(site) for site in ("batch", "batcher", "search")}
+    fi.clear()
+    service._degrade = type(service)._degrade.__get__(service)
+    return dict(answers=answers, walls=walls, ladders=ladders, wall=wall, fired=fired,
+                search_adv=search_adv)
+
+
+def slowest_splits(chaos: dict, n: int = 5) -> list[dict]:
+    """The ``n`` slowest chaos queries: wall ms split into the wait for
+    the exact tiers and the ladder, with the answer's fidelity."""
+    walls, ladders, answers = chaos["walls"], chaos["ladders"], chaos["answers"]
+    order = sorted(range(len(walls)), key=lambda i: -walls[i])[:n]
+    return [dict(query=i, wall_ms=walls[i] * 1e3, wait_ms=(walls[i] - ladders[i]) * 1e3,
+                 ladder_ms=ladders[i] * 1e3, fidelity=answers[i].fidelity) for i in order]
+
+
 def phase_service_resilience() -> None:
     """The three records of benchmarks/serve_resilience.py on the card,
     then each rung of the ladder forced once."""
     from repro_torch.core.numa import E7_4830_V3
     from repro_torch.core.numa import calibrate as C
-    from repro_torch.launch.advisor_serve import search_machine, signature_pool
+    from repro_torch.launch.advisor_serve import signature_pool
     from repro_torch.serve import FIDELITIES, AdvisorService, FaultInjector, Recalibrator
 
     deadline_s, grace_s, n_chaos = 0.25, 1.0, 1000
     fi = FaultInjector()
-    service = AdvisorService(device="cuda", max_batch=8, max_wait_s=0.002, faults=fi,
-                             default_deadline_s=deadline_s)
+    service, sweep_fp, search_fp, hot, search_sigs = resilience_service(fi, deadline_s)
     try:
-        sweep_fp = service.register(E7_4830_V3)
-        search_fp = service.register(search_machine())
-        hot = signature_pool(32, seed=0)
-        fresh = signature_pool(n_chaos, seed=7)
-        search_sigs = signature_pool(4, seed=13)
-        service.warmup(sweep_fp, 24)
-        service.warmup(search_fp, 32, search_sigs[0])
-        for sig in hot:
-            service.query(sweep_fp, sig, 24, deadline_s=60.0)
-        service.metrics.reset(keep_traces=True)
-
         # -- chaos-mixed: 1,000 queries from 4 workers while faults fire
-        fi.inject_slow("batch", 0.3, times=12)
-        fi.inject_error("batch", times=8)
-        fi.inject_error("batcher", times=2)
-        fi.inject_error("search", times=2)
-        rng = np.random.default_rng(3)
-        fresh_iter = iter(fresh)
-        stream = [hot[int(rng.integers(len(hot)))] if rng.random() < 0.6 else next(fresh_iter)
-                  for _ in range(n_chaos)]
-        walls = [0.0] * n_chaos
-        answers = [None] * n_chaos
-        counter = iter(range(n_chaos))
-        lock = threading.Lock()
-
-        def worker() -> None:
-            while True:
-                with lock:
-                    i = next(counter, None)
-                if i is None:
-                    return
-                t0 = time.perf_counter()
-                answers[i] = service.query(sweep_fp, stream[i], 24)
-                walls[i] = time.perf_counter() - t0
-
-        threads = [threading.Thread(target=worker) for _ in range(4)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        search_adv = service.query(search_fp, search_sigs[1], 32, deadline_s=30.0)
-        for t in threads:
-            t.join(timeout=300)
-        wall = time.perf_counter() - t0
-        check(not any(t.is_alive() for t in threads), "a chaos worker hung")
+        chaos = chaos_record(service, fi, sweep_fp, search_fp, hot, search_sigs,
+                             n_chaos=n_chaos, deadline_s=deadline_s)
         t_cleared = time.perf_counter()
-        fired = {site: fi.fired(site) for site in ("batch", "batcher", "search")}
-        fi.clear()
+        answers, walls, wall = chaos["answers"], chaos["walls"], chaos["wall"]
+        search_adv = chaos["search_adv"]
         snap = service.metrics.snapshot()
         degraded = sum(a.fidelity != "exact" for a in answers)
         hangs = sum(w > deadline_s + grace_s for w in walls)
@@ -1452,8 +1561,9 @@ def phase_service_resilience() -> None:
              qps=n_chaos / wall, wall_s=wall, deadline_ms=deadline_s * 1e3,
              degraded_queries=degraded, degraded_rate=degraded / n_chaos,
              max_degraded_rate=0.5, hangs=hangs, max_wall_ms=max(walls) * 1e3,
+             slowest=slowest_splits(chaos),
              fidelity_counts=snap["fidelity_counts"], tier_counts=snap["tier_counts"],
-             worker_restarts=snap["worker_restarts"], faults_fired=fired,
+             worker_restarts=snap["worker_restarts"], faults_fired=chaos["fired"],
              search_tier=search_adv.tier, search_fidelity=search_adv.fidelity)
         check(all(a is not None and a.fidelity in FIDELITIES for a in answers),
               "a chaos answer is missing or untagged")
@@ -1483,6 +1593,7 @@ def phase_service_resilience() -> None:
             service.query(prod, sig, 24, deadline_s=60.0)
         observed: list[tuple] = []
         stop = threading.Event()
+        lock = threading.Lock()
         stream_fresh = iter(signature_pool(20_000, seed=41))
 
         def streamer() -> None:
@@ -1874,7 +1985,70 @@ def timed_generate(cfg, params, prompts, new: int) -> tuple[torch.Tensor, float]
 
 
 REDUCED_ARCHS = ("llama3-8b", "gemma2-9b", "h2o-danube-1.8b", "falcon-mamba-7b",
-                 "jamba-1.5-large-398b", "mixtral-8x22b", "qwen3-moe-30b-a3b")
+                 "jamba-1.5-large-398b", "mixtral-8x22b", "qwen3-moe-30b-a3b",
+                 "whisper-medium", "internvl2-2b")
+# whisper's encoder frames in the reduced runs: no multiple of a tile
+REDUCED_FRAMES = 40
+
+
+def k1_calls(cfg) -> int:
+    """K1's launches in one forward: one per attention layer, and for an
+    encoder-decoder one per encoder layer and one cross-attention per
+    decoder layer."""
+    n_attn, _ = layer_kinds(cfg)
+    return n_attn + (cfg.encoder_layers + cfg.n_layers if cfg.is_encoder_decoder else 0)
+
+
+def frontend_inputs(cfg, B: int, rng: np.random.Generator) -> dict:
+    """The batch entries of an arch's frontend stub, float32 normal draws
+    from ``rng`` on the CPU: whisper's ``enc_frames`` (B, REDUCED_FRAMES, D),
+    internvl2's ``patch_embeds`` (B, frontend_tokens, D), else none."""
+    if cfg.is_encoder_decoder:
+        shape = (B, REDUCED_FRAMES, cfg.d_model)
+    elif cfg.frontend == "vit_patches":
+        shape = (B, cfg.frontend_tokens, cfg.d_model)
+    else:
+        return {}
+    key = "enc_frames" if cfg.is_encoder_decoder else "patch_embeds"
+    return {key: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)}
+
+
+def fill_cross(cfg, params, cache, enc_out) -> None:
+    """Each decoder layer's cross cache from the encoder output, as the
+    reference's own test fills it (``cross_kv`` per layer)."""
+    from repro_torch.models.attention import cross_kv
+
+    for layer, entry in zip(params.layers, cache.cross):
+        k, v = cross_kv(cfg, layer.cross, enc_out)
+        entry.k.copy_(k)
+        entry.v.copy_(v)
+
+
+@torch.no_grad()
+def encdec_generate(cfg, params, frames, prompts, new: int, device: str,
+                    cache_dtype=torch.bfloat16):
+    """An encoder-decoder's greedy generation: the cross cache filled once
+    from ``encode``, the prompt teacher-forced through the decode path,
+    then ``new`` greedy tokens, as ``launch.serve.generate`` runs a
+    decoder-only arch.  Returns ``(sequences, the logits of the last
+    prompt position, the step function, the cache, the last token)``."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import model as M
+
+    params = M.cast_for_compute(cfg, params)
+    frames, prompts = frames.to(device), prompts.to(device)
+    B, P = prompts.shape
+    cache = M.init_cache(cfg, B, frames.shape[1], cache_dtype, device=device)
+    fill_cross(cfg, params, cache, M.encode(cfg, params, frames, cast=False))
+    step = make_decode_step(cfg, cast=False)
+    tok, out, prompt_logits = prompts[:, :1], [prompts[:, 0]], None
+    for t in range(P + new - 1):
+        nxt, logits, cache = step(params, cache, tok, t)
+        if t == P - 1:
+            prompt_logits = logits
+        tok = prompts[:, t + 1 : t + 2] if t + 1 < P else nxt[:, None]
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1).to(torch.int32), prompt_logits, (step, params, cache, tok)
 
 
 def zero_routers(params):
@@ -1891,9 +2065,11 @@ def zero_routers(params):
 
 def phase_lm_reduced() -> None:
     """The reduced configs on the card against the port on the CPU, with
-    the same weights: bf16 prefill logits within rel 2e-2, K1 launched
-    once per attention layer and K2 once per mamba layer, and with a
-    float32 compute dtype the generated tokens equal.  jamba, whose MoE
+    the same weights and inputs (whisper's 40 encoder frames, internvl2's
+    8 patch embeddings): bf16 prefill logits within rel 2e-2, K1 launched
+    once per attention call (encoder, decoder and cross) and K2 once per
+    mamba layer, and with a float32 compute dtype the generated tokens
+    equal (whisper's with its cross cache filled from the encoder).  jamba, whose MoE
     routing feeds its mamba states (``routing_feeds_state``, the rule of
     the CPU tests too), holds its bf16 logits with its routers zeroed at
     rel 4e-2: with random routers the two devices' bf16 roundings flip
@@ -1911,27 +2087,37 @@ def phase_lm_reduced() -> None:
     for name in REDUCED_ARCHS:
         cfg = get_config(name).reduced()
         n_attn, n_mamba = layer_kinds(cfg)
+        n_k1 = k1_calls(cfg)
         cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
         card_params = copy.deepcopy(cpu_params).to("cuda")
-        prompts = torch.as_tensor(
-            np.random.default_rng(1).integers(0, cfg.vocab_size, (B, prompt)), dtype=torch.int32
-        )
+        rng = np.random.default_rng(1)
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, prompt)), dtype=torch.int32)
+        extra = frontend_inputs(cfg, B, rng)
+        batch = {"tokens": prompts, **extra}
         hybrid = M.routing_feeds_state(cfg)
         tol = 4e-2 if hybrid else 2e-2
         cpu16, card16 = (zero_routers(p) if hybrid else p for p in (cpu_params, card_params))
         step = make_prefill_step(cfg)
-        card_logits, k1, k2 = path_run(lambda: step(card16, {"tokens": prompts.cuda()}))
-        gap = rel_gap(card_logits, step(cpu16, {"tokens": prompts}))
+        card_logits, k1, k2 = path_run(
+            lambda: step(card16, {k: v.cuda() for k, v in batch.items()}))
+        gap = rel_gap(card_logits, step(cpu16, batch))
 
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        card_seqs = generate(cfg32, card_params, prompts, prompt + gen, gen, device="cuda").cpu()
-        cpu_seqs = generate(cfg32, cpu_params, prompts, prompt + gen, gen, device="cpu")
+        if cfg.is_encoder_decoder:  # the cross cache filled from the encoder
+            frames = extra["enc_frames"]
+            card_seqs = encdec_generate(cfg32, card_params, frames, prompts, gen, "cuda")[0].cpu()
+            cpu_seqs = encdec_generate(cfg32, cpu_params, frames, prompts, gen, "cpu")[0]
+        else:  # internvl2 decodes tokens alone, as the reference does
+            card_seqs = generate(cfg32, card_params, prompts, prompt + gen, gen,
+                                 device="cuda").cpu()
+            cpu_seqs = generate(cfg32, cpu_params, prompts, prompt + gen, gen, device="cpu")
         equal = bool(torch.equal(card_seqs, cpu_seqs))
         emit(
             "lm_reduced",
             arch=cfg.name,
             batch=B, prompt=prompt, gen=gen,
-            attention_layers=n_attn, mamba_layers=n_mamba,
+            frontend={k: list(v.shape) for k, v in extra.items()},
+            attention_layers=n_attn, mamba_layers=n_mamba, k1_calls_per_forward=n_k1,
             prefill_logits_rel_gap_vs_cpu=gap,
             prefill_tolerance=tol,
             prefill_routers_zeroed=hybrid,
@@ -1939,7 +2125,7 @@ def phase_lm_reduced() -> None:
             prefill_k2_launches=k2,
             f32_tokens_equal_cpu=equal,
         )
-        check(k1 == n_attn, f"{name}: K1 launched {k1} times for {n_attn} attention layers")
+        check(k1 == n_k1, f"{name}: K1 launched {k1} times for {n_k1} attention calls")
         check(k2 == n_mamba, f"{name}: K2 launched {k2} times for {n_mamba} mamba layers")
         check(gap <= tol, f"{name}: card prefill logits differ from the CPU by rel {gap}")
         check(equal, f"{name}: float32 tokens differ between the card and the CPU")
@@ -1997,6 +2183,226 @@ def phase_lm_danube() -> None:
     )
     del params, logits
     torch.cuda.empty_cache()
+
+
+# whisper's start-of-transcript sequence in its multilingual vocabulary:
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+
+
+def attn_weights(cfg) -> int:
+    """One attention layer's projection weights (q, k, v, o)."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return d * h * dh + 2 * d * kv * dh + h * dh * d
+
+
+def phase_lm_whisper() -> None:
+    """whisper-medium at full width and depth on one card (24 encoder and
+    24 decoder layers, d 1,024, 16 heads of 64, random bf16 weights from a
+    seed): a prefill of 8 x 1,500 encoder frames (its 30 s window after
+    the conv stem) x 448 decoder tokens, K1 launched 72 times (encoder,
+    decoder self- and cross-attention per layer); then generation at B=4
+    with the cross cache filled once from ``encode``, the 4-token
+    start-of-transcript prompt and 60 new tokens; and the decode path's
+    logits at the last prompt position held against the prefill's, in
+    bf16 and in float32 (a float32 cache)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = get_config("whisper-medium")
+    left_gb = free_card()
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen.manual_seed(0), device="cuda", compute=True)
+    sync()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(count == M.tree_param_count(cfg), f"whisper-medium holds {count} parameters")
+
+    B, S_enc, T = 8, 1500, cfg.max_target_len
+    frames = torch.randn((B, S_enc, cfg.d_model), generator=gen.manual_seed(1), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen.manual_seed(2),
+                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens, "enc_frames": frames}
+    step = make_prefill_step(cfg)
+    logits, path_k1, _ = path_run(lambda: step(params, batch))  # the main path's run
+    check(path_k1 == k1_calls(cfg) == 72,
+          f"whisper prefill launched K1 {path_k1} times, not 72 (24 encoder, 24 self, 24 cross)")
+    check(logits.shape == (B, cfg.padded_vocab), f"whisper prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "whisper prefill logits are not finite")
+    walls = wall_times(lambda: step(params, batch), 3)
+    profile = device_profile(lambda: step(params, batch), watch="flash_fwd", top=5,
+                             expected=path_k1)
+    # least time: 2 operations per weight and row of the encoder's layers
+    # (frames), the decoder's (tokens; the cross q and o projections on
+    # tokens, its k and v on frames), K1's work and the lm_head for the
+    # last position, at bf16 peak
+    d, f, h, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    layer = attn_weights(cfg) + 3 * d * f
+    attn = 4 * dh * B * h * (cfg.encoder_layers * attention_pairs(S_enc, S_enc, False, 0)
+                             + cfg.n_layers * (attention_pairs(T, T, True, 0)
+                                               + attention_pairs(T, S_enc, False, 0)))
+    ops = (2 * B * S_enc * cfg.encoder_layers * layer
+           + 2 * B * T * cfg.n_layers * (layer + 2 * d * h * dh)
+           + 2 * B * S_enc * cfg.n_layers * 2 * d * cfg.n_kv_heads * dh
+           + attn + 2 * B * d * cfg.padded_vocab)
+    emit(
+        "lm_whisper_prefill",
+        arch=cfg.name,
+        params=count,
+        config_param_count=cfg.param_count(),
+        weight_gb=weight_bytes / 1e9,
+        allocated_gb_before=left_gb,
+        init_s=init_s,
+        batch=B, encoder_frames=S_enc, decoder_tokens=T,
+        k1_launches_per_call=path_k1,
+        prefill_s=min(walls),
+        prefill_s_runs=walls,
+        frames_per_s=B * S_enc / min(walls),
+        decoder_tokens_per_s=B * T / min(walls),
+        prefill_bound_ms=ops / BF16_OPS_PER_S * 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=profile,
+    )
+    del logits
+
+    # generate: B=4, the cross cache filled once, 4 prompt tokens + 60 new
+    Bg, new = 4, 60
+    prompts = torch.tensor([WHISPER_PROMPT] * Bg, dtype=torch.int32, device="cuda")
+    P = prompts.shape[1]
+    encdec_generate(cfg, params, frames[:Bg], prompts[:, :2], 2, "cuda")  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    seqs, dec16, (decode, cparams, cache, tok) = encdec_generate(
+        cfg, params, frames[:Bg], prompts, new, "cuda")
+    sync()
+    gen_s = time.perf_counter() - t0
+    steps_run = P + new - 1
+    check(seqs.shape == (Bg, P + new) and bool(torch.equal(seqs[:, :P], prompts)),
+          "whisper generate returned the wrong sequences")
+    check(bool(((seqs >= 0) & (seqs < cfg.padded_vocab)).all()), "whisper token ids out of range")
+    step_profile = device_profile(lambda: decode(cparams, cache, tok, cfg.max_target_len - 1))
+    del cache
+
+    # the decode path's logits at position P - 1 against the prefill's, in
+    # bf16 (as served) and in float32 with a float32 cache
+    short = {"tokens": prompts, "enc_frames": frames[:Bg]}
+    pre16 = step(params, short)
+    gap16 = rel_gap(dec16, pre16)
+    del params, cparams, decode
+    free_card()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32 = M.init_params(cfg32, gen.manual_seed(0), device="cuda")
+    _, dec32, _ = encdec_generate(cfg32, params32, frames[:Bg], prompts, 1, "cuda",
+                                  cache_dtype=torch.float32)
+    pre32, k1_32, _ = path_run(lambda: make_prefill_step(cfg32)(params32, short))
+    gap32 = rel_gap(dec32, pre32)
+    emit(
+        "lm_whisper_generate",
+        arch=cfg.name,
+        batch=Bg, encoder_frames=S_enc, prompt=list(WHISPER_PROMPT), gen=new,
+        decode_steps=steps_run,
+        generate_s=gen_s,
+        generated_tokens_per_s=Bg * new / gen_s,
+        ms_per_decode_step=1e3 * gen_s / steps_run,
+        decode_step_weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        step_profile=step_profile,
+        prefill_vs_decode_logits_rel_gap={"bfloat16": gap16, "float32": gap32},
+        prefill_vs_decode_tolerance={"bfloat16": 5e-2, "float32": 1e-3},
+        prefill_vs_decode_argmax_agree={
+            "bfloat16": f"{int((dec16.argmax(-1) == pre16.argmax(-1)).sum())}/{Bg}",
+            "float32": f"{int((dec32.argmax(-1) == pre32.argmax(-1)).sum())}/{Bg}"},
+        float32_prefill_k1_launches=k1_32,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    check(k1_32 == 72, f"the float32 prefill launched K1 {k1_32} times")
+    check(gap16 <= 5e-2, f"whisper bf16 prefill and decode logits differ by rel {gap16}")
+    check(gap32 <= 1e-3, f"whisper float32 prefill and decode logits differ by rel {gap32}")
+    del params32
+    free_card()
+
+
+def phase_lm_internvl2() -> None:
+    """internvl2-2b at full width and depth on one card (24 layers, d
+    2,048, GQA 16:8 at dh 128, untied head, 1,893,828,608 parameters,
+    random bf16 weights from a seed): a prefill of 4 x (256 patch
+    embeddings + 1,792 text tokens), K1 launched once per layer; then
+    generation on tokens alone (4 x 64 prompt + 32 new), as the
+    reference serves the arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = get_config("internvl2-2b")
+    left_gb = free_card()
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen.manual_seed(0), device="cuda", compute=True)
+    sync()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(count == M.tree_param_count(cfg) == 1_893_828_608,
+          f"internvl2-2b holds {count} parameters")
+
+    B, n_patch, T = 4, cfg.frontend_tokens, 1792
+    S = n_patch + T
+    patches = torch.randn((B, n_patch, cfg.d_model), generator=gen.manual_seed(1), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen.manual_seed(2),
+                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens, "patch_embeds": patches}
+    step = make_prefill_step(cfg)
+    logits, path_k1, _ = path_run(lambda: step(params, batch))  # the main path's run
+    check(path_k1 == cfg.n_layers == 24,
+          f"internvl2 prefill launched K1 {path_k1} times, not once per layer ({cfg.n_layers})")
+    check(logits.shape == (B, cfg.padded_vocab), f"internvl2 prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "internvl2 prefill logits are not finite")
+    walls = wall_times(lambda: step(params, batch), 3)
+    profile = device_profile(lambda: step(params, batch), watch="flash_fwd", top=5,
+                             expected=path_k1)
+    # least time: the layers' matmuls over all S positions, the patch
+    # projection, K1's causal work and the lm_head for the last position
+    d = cfg.d_model
+    layer = attn_weights(cfg) + 3 * d * cfg.d_ff
+    ops = (2 * B * S * cfg.n_layers * layer + 2 * B * n_patch * d * d
+           + cfg.n_layers * 4 * cfg.head_dim * B * cfg.n_heads * attention_pairs(S, S, True, 0)
+           + 2 * B * d * cfg.padded_vocab)
+    emit(
+        "lm_internvl2_prefill",
+        arch=cfg.name,
+        params=count,
+        config_param_count=cfg.param_count(),
+        weight_gb=weight_bytes / 1e9,
+        allocated_gb_before=left_gb,
+        init_s=init_s,
+        batch=B, patches=n_patch, text_tokens=T,
+        k1_launches_per_call=path_k1,
+        prefill_s=min(walls),
+        prefill_s_runs=walls,
+        prefill_tokens_per_s=B * S / min(walls),
+        prefill_bound_ms=ops / BF16_OPS_PER_S * 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=profile,
+    )
+    prompt, new = 64, 32
+    _, gen_s = timed_generate(cfg, params, tokens[:, :prompt], new)
+    steps_run = prompt + new - 1
+    emit(
+        "lm_internvl2_generate",
+        arch=cfg.name,
+        batch=B, prompt=prompt, gen=new,
+        decode_steps=steps_run,
+        generate_s=gen_s,
+        generated_tokens_per_s=B * new / gen_s,
+        ms_per_decode_step=1e3 * gen_s / steps_run,
+        decode_step_weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+    )
+    del params, logits
+    free_card()
 
 
 def phase_lm_serve() -> int:
@@ -2287,8 +2693,8 @@ def phase_lm_reduced_train() -> None:
     """One float32 train step of each reduced arch on the card and on the
     port on the CPU, with the same weights and batch: the loss within rel
     1e-4, the gradient's global norm within rel 1e-3, and on the card K1
-    forward and backward launched once per attention layer and K2 forward
-    and backward once per mamba layer."""
+    forward and backward launched once per attention call (encoder,
+    decoder and cross) and K2 forward and backward once per mamba layer."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2298,9 +2704,12 @@ def phase_lm_reduced_train() -> None:
     for name in REDUCED_ARCHS:
         cfg = dataclasses.replace(get_config(name).reduced(), compute_dtype="float32")
         n_attn, n_mamba = layer_kinds(cfg)
-        tokens = torch.as_tensor(
-            np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 41)), dtype=torch.int32)
-        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        n_k1 = k1_calls(cfg)
+        rng = np.random.default_rng(2)
+        # whisper's decoder takes at most max_target_len tokens (32 reduced)
+        S = min(40, cfg.max_target_len) if cfg.is_encoder_decoder else 40
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, S + 1)), dtype=torch.int32)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:], **frontend_inputs(cfg, 2, rng)}
         step = make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-3, 0, 10))
         cpu_params, _, cpu_opt = trainable(cfg, "cpu")
         _, _, cpu_m = step(cpu_params, cpu_opt, batch, 0)
@@ -2313,16 +2722,16 @@ def phase_lm_reduced_train() -> None:
         emit(
             "lm_reduced_train",
             arch=cfg.name,
-            batch=2, seq=40,
-            attention_layers=n_attn, mamba_layers=n_mamba,
+            batch=2, seq=S,
+            attention_layers=n_attn, mamba_layers=n_mamba, k1_calls_per_forward=n_k1,
             loss=float(card_m["loss"]),
             loss_rel_gap_vs_cpu=loss_gap,
             grad_norm=float(card_m["grad_norm"]),
             grad_norm_rel_gap_vs_cpu=norm_gap,
             launches=counts,
         )
-        check(counts == {"k1": n_attn, "k1_bwd": n_attn, "k2": n_mamba, "k2_bwd": n_mamba},
-              f"{name}: a train step launched {counts} for {n_attn} attention and "
+        check(counts == {"k1": n_k1, "k1_bwd": n_k1, "k2": n_mamba, "k2_bwd": n_mamba},
+              f"{name}: a train step launched {counts} for {n_k1} attention calls and "
               f"{n_mamba} mamba layers")
         check(loss_gap <= 1e-4, f"{name}: card loss differs from the CPU by rel {loss_gap}")
         check(norm_gap <= 1e-3, f"{name}: card gradient norm differs from the CPU by rel {norm_gap}")
@@ -2721,6 +3130,8 @@ def main() -> int:
     phase_lm_reduced()
     phase_lm_reduced_train()
     phase_lm_danube()
+    phase_lm_whisper()
+    phase_lm_internvl2()
     flash_row = {
         "name": "flash_attention",
         "route": "cuda",

@@ -93,16 +93,16 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) value for
     value and dtype for dtype.  The reference stacks each slot's leaves
     over groups; layer ``g * group_size + s`` gets group ``g`` of
-    ``groups["slot<s>"]``.  MoE experts must be stored whole, one row an
+    ``groups["slot<s>"]``, encoder layer ``i`` entry ``i`` of
+    ``encoder.groups.slot0``.  MoE experts must be stored whole, one row an
     expert (the reference's ``factor`` 1, as with no mesh); a tree whose
     experts are split over ``d_ff`` raises ``ValueError``."""
     from repro_torch.models.attention import Attention
     from repro_torch.models.layers import SwiGLU
     from repro_torch.models.mamba import Mamba
-    from repro_torch.models.model import LM, Block, check_supported, slot_kinds
+    from repro_torch.models.model import LM, Block, Encoder, Frontend, slot_kinds
     from repro_torch.models.moe import MoE
 
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def t(a):
@@ -111,37 +111,51 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     def leaves(group: Mapping, names, g):
         return (t(group[n][g]) for n in names)
 
-    layers = []
-    for g in range(cfg.n_groups):
-        for s in range(cfg.group_size):
-            slot = tree["groups"][f"slot{s}"]
-            mixer_kind, _, ffn_kind = slot_kinds(cfg, s)
-            if mixer_kind == "attn":
-                mixer = Attention(*leaves(slot["mixer"], ("wq", "wk", "wv", "wo"), g))
-            else:
-                mixer = Mamba(*leaves(slot["mixer"], Mamba.LEAVES, g))
-            if ffn_kind == "none":
-                layers.append(Block(t(slot["norm1"][g]), mixer))
-                continue
-            if ffn_kind == "moe":
-                rows = slot["ffn"]["w_gate"].shape[1]
-                if rows != cfg.n_experts:
-                    raise ValueError(
-                        f"{cfg.name}: the tree holds {rows} expert rows for {cfg.n_experts} "
-                        "experts (experts split over d_ff); the port takes whole experts"
-                    )
-                ffn = MoE(*leaves(slot["ffn"], MoE.LEAVES, g))
-            else:
-                ffn = SwiGLU(*leaves(slot["ffn"], ("w_gate", "w_up", "w_down"), g))
-            layers.append(Block(t(slot["norm1"][g]), mixer, t(slot["norm2"][g]), ffn))
+    def block(slot: Mapping, s: int, g: int) -> Block:
+        mixer_kind, _, ffn_kind = slot_kinds(cfg, s)
+        if mixer_kind == "attn":
+            mixer = Attention(*leaves(slot["mixer"], ("wq", "wk", "wv", "wo"), g))
+        else:
+            mixer = Mamba(*leaves(slot["mixer"], Mamba.LEAVES, g))
+        norm2 = ffn = None
+        if ffn_kind == "moe":
+            rows = slot["ffn"]["w_gate"].shape[1]
+            if rows != cfg.n_experts:
+                raise ValueError(
+                    f"{cfg.name}: the tree holds {rows} expert rows for {cfg.n_experts} "
+                    "experts (experts split over d_ff); the port takes whole experts"
+                )
+            ffn = MoE(*leaves(slot["ffn"], MoE.LEAVES, g))
+        elif ffn_kind == "dense":
+            ffn = SwiGLU(*leaves(slot["ffn"], ("w_gate", "w_up", "w_down"), g))
+        if ffn is not None:
+            norm2 = t(slot["norm2"][g])
+        if "cross" not in slot:
+            return Block(t(slot["norm1"][g]), mixer, norm2, ffn)
+        cross = Attention(*leaves(slot["cross"], ("wq", "wk", "wv", "wo"), g))
+        return Block(t(slot["norm1"][g]), mixer, norm2, ffn, t(slot["norm_cross"][g]), cross)
+
+    layers = [block(tree["groups"][f"slot{s}"], s, g)
+              for g in range(cfg.n_groups) for s in range(cfg.group_size)]
     lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
-    return LM(t(tree["embed"]["table"]), layers, t(tree["final_norm"]), lm_head)
+    extra = {}
+    if "frontend" in tree:
+        extra["frontend"] = Frontend(t(tree["frontend"]["proj"]))
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        extra["encoder"] = Encoder(
+            [block(enc["groups"]["slot0"], 0, i) for i in range(cfg.encoder_layers)],
+            t(enc["final_norm"]),
+        )
+        extra["dec_pos"] = t(tree["dec_pos"])
+    return LM(t(tree["embed"]["table"]), layers, t(tree["final_norm"]), lm_head, **extra)
 
 
 def lm_params_to_reference(cfg, lm) -> dict:
     """The inverse of :func:`lm_params_from_reference`: the reference's
     nested parameter tree of numpy arrays, each slot's leaves stacked over
-    groups (``groups["slot<s>"]``, leading axis ``g``), from the port's
+    groups (``groups["slot<s>"]``, leading axis ``g``; an encoder's over
+    its layers, ``encoder.groups.slot0``), from the port's
     :class:`~repro_torch.models.model.LM` or from a mapping of its
     parameter names to tensors (e.g. each leaf's ``.grad``).  Leaves keep
     their dtype, except bfloat16, which numpy lacks: it comes back as
@@ -160,6 +174,9 @@ def lm_params_to_reference(cfg, lm) -> dict:
             i = int(parts[1])
             key = ("groups", f"slot{i % cfg.group_size}", *parts[2:])
             stacks.setdefault(key, [None] * cfg.n_groups)[i // cfg.group_size] = host(t)
+        elif parts[:2] == ["encoder", "layers"]:
+            key = ("encoder", "groups", "slot0", *parts[3:])
+            stacks.setdefault(key, [None] * cfg.encoder_layers)[int(parts[2])] = host(t)
         else:
             key = tuple(parts)
             node = tree

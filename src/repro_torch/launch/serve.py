@@ -4,8 +4,12 @@ teacher-forced prefill through the decode path, then greedy decode.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --reduced --batch 4 --prompt-len 16 --gen 16 [--device cpu]
 
-Any decoder-only arch serves (attention, mamba and MoE layers); at full
-size falcon-mamba-7b and qwen3-moe-30b-a3b fit one H100.  The default
+Any decoder-only arch serves (attention, mamba and MoE layers), and so
+does internvl2-2b on its tokens alone (its decode step never sees the
+patches, as in the reference); an encoder-decoder (whisper-medium) is
+refused with the reference's message, since the demo has no audio
+frames.  At full size falcon-mamba-7b and qwen3-moe-30b-a3b fit one
+H100.  The default
 device is the card (``cuda``); without one it raises.  The weights are
 random, drawn from a seeded ``torch.Generator`` on the device and cast
 to the compute dtype leaf by leaf.

@@ -1,5 +1,5 @@
 """Shared layers (port of ``repro.models.layers``): norms, rotary
-embeddings, the SwiGLU FFN, embeddings.  The reference's sharding
+embeddings, sinusoidal positions, the SwiGLU FFN, embeddings.  The reference's sharding
 annotations have no counterpart on one card and are dropped."""
 
 from __future__ import annotations
@@ -89,3 +89,13 @@ def unembed(
         logits = softcap(logits, cap)
     return logits
 
+
+
+def sinusoidal_positions(length: int, dim: int, *, device=None) -> torch.Tensor:
+    """Fixed sinusoidal embeddings (whisper's encoder), ``(length, dim)``
+    float32: the sines of ``pos / 10000**(2 i / dim)`` for ``i <
+    dim // 2``, then their cosines (concatenated, not interleaved)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / torch.pow(10_000.0, 2 * idx / dim)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

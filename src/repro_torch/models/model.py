@@ -5,17 +5,26 @@ The reference stacks its layers into groups of ``cfg.group_size`` (the
 period of the arch's layer pattern) and scans them; the port keeps a
 ``ModuleList`` of layers instead, where layer ``g * group_size + s`` is
 group ``g``, slot ``s``, and takes its kinds from the slot: an attention
-or a mamba mixer, and a dense, an MoE or no FFN (every decoder-only
-arch: llama3-8b, gemma2-9b, h2o-danube-1.8b, deepseek-7b,
-falcon-mamba-7b, jamba-1.5-large-398b, mixtral-8x22b,
-qwen3-moe-30b-a3b).  An encoder-decoder or a ViT-patch frontend raises
-``NotImplementedError`` naming its ROADMAP item.
+or a mamba mixer, and a dense, an MoE or no FFN.  That covers all ten
+archs: the decoder-only ones (llama3-8b, gemma2-9b, h2o-danube-1.8b,
+deepseek-7b, falcon-mamba-7b, jamba-1.5-large-398b, mixtral-8x22b,
+qwen3-moe-30b-a3b), the encoder-decoder whisper-medium (an encoder stack
+over precomputed frames plus sinusoidal positions, non-causal and without
+rotary embeddings; per decoder layer a cross-attention over the encoder
+output; learned decoder positions, no rotary in the decoder) and
+internvl2-2b (precomputed ViT patch embeddings projected and put before
+the text tokens).  As in the reference, the modality frontends are stubs:
+frames and patches arrive as inputs (``batch["enc_frames"]``,
+``batch["patch_embeds"]``).
 
 Parameter names follow the reference tree (``embed.table``,
 ``layers.<i>.mixer.wq`` or ``layers.<i>.mixer.A_log``,
 ``layers.<i>.ffn.w_gate`` or ``layers.<i>.ffn.router``,
 ``layers.<i>.norm1``, ``final_norm``, ``lm_head``); a layer without an
-FFN has neither ``norm2`` nor ``ffn``.  Compute follows its
+FFN has neither ``norm2`` nor ``ffn``.  An encoder-decoder adds
+``encoder.layers.<i>.*`` and ``encoder.final_norm``,
+``layers.<i>.norm_cross`` and ``layers.<i>.cross.*`` and ``dec_pos``; a
+ViT-patch frontend adds ``frontend.proj``.  Compute follows its
 mixed-precision policy: master parameters in ``param_dtype``, matmul
 weights cast to ``compute_dtype`` at the step boundary
 (:func:`cast_for_compute`), norm scales, SSM dynamics and router kept in
@@ -30,6 +39,7 @@ then differentiable, so gradients reach the float32 master leaves, and
 from __future__ import annotations
 
 import copy
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -39,7 +49,16 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import Embed, SwiGLU, embed, rms_norm, swiglu, unembed, weight
+from repro_torch.models.layers import (
+    Embed,
+    SwiGLU,
+    embed,
+    rms_norm,
+    sinusoidal_positions,
+    swiglu,
+    unembed,
+    weight,
+)
 
 # Leaves kept in float32 regardless of the compute policy (besides the
 # norm scales): SSM dynamics (A_log and D are exp'd) and router logits
@@ -57,19 +76,6 @@ def slot_kinds(cfg: ModelConfig, slot: int) -> tuple[str, str, str]:
     return mixer, akind, ffn
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a part of ``cfg`` the port does
-    not run yet, naming its ROADMAP item."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for ROADMAP §1 P14 (enc-dec)"
-        )
-    if cfg.frontend == "vit_patches":
-        raise NotImplementedError(
-            f"{cfg.name}: the ViT-patch frontend waits for ROADMAP §1 P14 (vit)"
-        )
-
-
 def routing_feeds_state(cfg: ModelConfig) -> bool:
     """Whether an MoE layer's expert choices feed a later mamba layer's
     state (jamba).  A top-k choice near a tie flips under a last-bit
@@ -85,13 +91,19 @@ def routing_feeds_state(cfg: ModelConfig) -> bool:
 def tree_param_count(cfg: ModelConfig) -> int:
     """The parameters :func:`init_params` makes, as many as the
     reference's tree holds.  ``cfg.param_count()`` (the reference's own
-    count, kept as it is) differs from the tree in two places: it omits a
-    mamba layer's ``conv_b`` (d_inner) and counts a ``norm2`` (d_model)
-    in a layer without an FFN."""
+    count, kept as it is) differs from the tree in four places: it omits
+    a mamba layer's ``conv_b`` (d_inner), counts a ``norm2`` (d_model) in
+    a layer without an FFN, omits the encoder's ``final_norm`` (d_model)
+    and omits the ViT patch projection (d_model x d_model; it tests
+    ``frontend == "vlm"``, which no config has)."""
     total = cfg.param_count()
     for i in range(cfg.n_layers):
         mixer, _, ffn = slot_kinds(cfg, i % cfg.group_size)
         total += (cfg.d_inner if mixer == "mamba" else 0) - (cfg.d_model if ffn == "none" else 0)
+    if cfg.is_encoder_decoder:
+        total += cfg.d_model
+    if cfg.frontend == "vit_patches":
+        total += cfg.d_model * cfg.d_model
     return total
 
 
@@ -105,26 +117,55 @@ class Block(nn.Module):
     :class:`~repro_torch.models.attention.Attention` or a
     :class:`~repro_torch.models.mamba.Mamba`), and, unless the slot has
     no FFN, ``norm2`` and the ``ffn`` (a :class:`SwiGLU` or an
-    :class:`~repro_torch.models.moe.MoE`)."""
+    :class:`~repro_torch.models.moe.MoE`).  An encoder-decoder's decoder
+    layer also has ``norm_cross`` and ``cross`` (an ``Attention`` over the
+    encoder output)."""
 
-    def __init__(self, norm1, mixer: nn.Module, norm2=None, ffn: nn.Module | None = None):
+    def __init__(self, norm1, mixer: nn.Module, norm2=None, ffn: nn.Module | None = None,
+                 norm_cross=None, cross: nn.Module | None = None):
         super().__init__()
         self.norm1 = weight(norm1)
         self.mixer = mixer
         self.norm2 = None if norm2 is None else weight(norm2)
         self.ffn = ffn
+        self.norm_cross = None if norm_cross is None else weight(norm_cross)
+        self.cross = cross
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: ``layers`` and ``final_norm``."""
+
+    def __init__(self, layers: list[Block], final_norm):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = weight(final_norm)
+
+
+class Frontend(nn.Module):
+    """The ViT-patch frontend's projection ``proj`` (D, D)."""
+
+    def __init__(self, proj):
+        super().__init__()
+        self.proj = weight(proj)
 
 
 class LM(nn.Module):
-    """A decoder-only LM: ``embed``, ``layers``, ``final_norm`` and, unless
-    the embeddings are tied, ``lm_head`` (D, padded vocab)."""
+    """An LM: ``embed``, ``layers``, ``final_norm`` and, unless the
+    embeddings are tied, ``lm_head`` (D, padded vocab); an encoder-decoder
+    also has ``encoder`` (an :class:`Encoder`) and ``dec_pos``
+    (max_target_len, D), a ViT-patch frontend ``frontend`` (a
+    :class:`Frontend`)."""
 
-    def __init__(self, table, layers: list[Block], final_norm, lm_head=None):
+    def __init__(self, table, layers: list[Block], final_norm, lm_head=None, *,
+                 encoder: Encoder | None = None, dec_pos=None, frontend: Frontend | None = None):
         super().__init__()
         self.embed = Embed(table)
         self.layers = nn.ModuleList(layers)
         self.final_norm = weight(final_norm)
         self.lm_head = None if lm_head is None else weight(lm_head)
+        self.frontend = frontend
+        self.encoder = encoder
+        self.dec_pos = None if dec_pos is None else weight(dec_pos)
 
 
 def _keeps_f32(name: str) -> bool:
@@ -187,7 +228,6 @@ def init_params(
     leaf is cast to its compute dtype as soon as it is drawn, so the
     float32 tree is never held whole (``cast_for_compute(cfg,
     init_params(...))`` without its peak)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     master = torch_dtype(cfg.param_dtype)
     weights = torch_dtype(cfg.compute_dtype) if compute else master
@@ -200,25 +240,35 @@ def init_params(
     def zeros():
         return torch.zeros(d, dtype=torch.float32, device=dev)
 
-    layers = []
-    for i in range(cfg.n_layers):
-        mixer_kind, _, ffn_kind = slot_kinds(cfg, i % cfg.group_size)
+    def block(slot: int, cross: bool) -> Block:
+        mixer_kind, _, ffn_kind = slot_kinds(cfg, slot)
         if mixer_kind == "attn":
             mixer = attn.init_attn_params(cfg, generator, weights, dev)
         else:
             mixer = mb.init_mamba_params(cfg, generator, weights, dev, master=master)
-        if ffn_kind == "none":
-            layers.append(Block(zeros(), mixer))
-            continue
+        norm2 = ffn = None
         if ffn_kind == "moe":
-            ffn = moe_mod.init_moe_params(cfg, generator, weights, dev)
-        else:
-            ffn = SwiGLU(normal((d, f), d**-0.5), normal((d, f), d**-0.5),
-                         normal((f, d), f**-0.5))
-        layers.append(Block(zeros(), mixer, zeros(), ffn))
+            norm2, ffn = zeros(), moe_mod.init_moe_params(cfg, generator, weights, dev)
+        elif ffn_kind == "dense":
+            norm2, ffn = zeros(), SwiGLU(normal((d, f), d**-0.5), normal((d, f), d**-0.5),
+                                         normal((f, d), f**-0.5))
+        if cross:
+            return Block(zeros(), mixer, norm2, ffn, zeros(),
+                         attn.init_attn_params(cfg, generator, weights, dev))
+        return Block(zeros(), mixer, norm2, ffn)
+
+    encdec = cfg.is_encoder_decoder
+    layers = [block(i % cfg.group_size, encdec) for i in range(cfg.n_layers)]
     table = normal((vocab, d), 0.02)
     lm_head = None if cfg.tie_embeddings else normal((d, vocab), 0.02)
-    return LM(table, layers, zeros(), lm_head)
+    extra = {}
+    if cfg.frontend == "vit_patches":
+        extra["frontend"] = Frontend(normal((d, d), d**-0.5))
+    if encdec:
+        # the reference's encoder stacks its slot 0 (attention + dense FFN)
+        extra["encoder"] = Encoder([block(0, False) for _ in range(cfg.encoder_layers)], zeros())
+        extra["dec_pos"] = normal((cfg.max_target_len, d), 0.02)
+    return LM(table, layers, zeros(), lm_head, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -253,39 +303,78 @@ def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str):
     return x + swiglu(h, layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down), None
 
 
-def _hidden(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    x = _embed_tokens(cfg, params, tokens)
+def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope: bool,
+           enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``layers`` over ``x``: each layer's mixer, then (with ``enc_out``)
+    its cross-attention over the encoder output, then its FFN.  Returns
+    ``(x, aux)``, aux the summed MoE balance loss."""
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, layer in enumerate(params.layers):
+    for i, layer in enumerate(layers):
         mixer, akind, ffn = slot_kinds(cfg, i % cfg.group_size)
         h = rms_norm(x, layer.norm1, cfg.norm_eps)
         if mixer == "attn":
-            x = x + attn.mha(cfg, layer.mixer, h, positions, kind=akind)
+            x = x + attn.mha(cfg, layer.mixer, h, positions, kind=akind, causal=causal,
+                             use_rope=use_rope)
         else:
             x = x + mb.mamba_mixer(cfg, layer.mixer, h)
+        if enc_out is not None:
+            h = rms_norm(x, layer.norm_cross, cfg.norm_eps)
+            kv = attn.cross_kv(cfg, layer.cross, enc_out)
+            x = x + attn.mha(cfg, layer.cross, h, positions, causal=False, use_rope=False,
+                             kv_override=kv)
         x, a = _ffn(cfg, layer, x, ffn)
         if a is not None:
             aux = aux + a
+    return x, aux
+
+
+def encode(cfg: ModelConfig, params: LM, frames: torch.Tensor, *, cast: bool = True) -> torch.Tensor:
+    """An encoder-decoder's encoder over precomputed ``frames`` (B,
+    S_enc, D): the frames in the compute dtype plus sinusoidal positions,
+    the encoder layers (non-causal, no rotary embeddings), its final norm.
+    Returns the encoder output (B, S_enc, D), from which
+    :func:`~repro_torch.models.attention.cross_kv` gives each decoder
+    layer's cross-attention K and V.  ``cast=False`` takes ``params`` as
+    :func:`cast_for_compute` returned them."""
+    if cast:
+        params = cast_for_compute(cfg, params)
+    compute = torch_dtype(cfg.compute_dtype)
+    frames = frames.to(compute)
+    pos = sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device).to(compute)
+    h, _ = _stack(cfg, params.encoder.layers, frames + pos[None], causal=False, use_rope=False)
+    return rms_norm(h, params.encoder.final_norm, cfg.norm_eps)
+
+
+def _hidden(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's hidden states after the final norm, and aux.  An
+    encoder-decoder runs :func:`encode` over ``batch["enc_frames"]`` and
+    adds ``dec_pos`` to the token embeddings; a ViT-patch frontend puts
+    ``batch["patch_embeds"] @ frontend.proj`` before them."""
+    enc_out = None
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.is_encoder_decoder:
+        enc_out = encode(cfg, params, batch["enc_frames"], cast=False)
+        x = x + params.dec_pos[None, : x.shape[1]].to(x.dtype)
+    if cfg.frontend == "vit_patches":
+        patches = batch["patch_embeds"].to(x.dtype) @ params.frontend.proj
+        x = torch.cat([patches, x], dim=1)  # image tokens first
+    x, aux = _stack(cfg, params.layers, x, causal=True, use_rope=not cfg.is_encoder_decoder,
+                    enc_out=enc_out)
     return rms_norm(x, params.final_norm, cfg.norm_eps), aux
-
-
-def _step_params(cfg: ModelConfig, params: LM) -> LM:
-    check_supported(cfg)
-    return cast_for_compute(cfg, params)
 
 
 def forward_hidden(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to the final norm; returns ``(hidden,
     aux)`` (aux is the MoE balance loss, 0 without MoE)."""
-    return _hidden(cfg, _step_params(cfg, params), batch["tokens"])
+    return _hidden(cfg, cast_for_compute(cfg, params), batch)
 
 
 def forward(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward; returns ``(logits (B, S, padded vocab),
-    aux)``."""
-    params = _step_params(cfg, params)
-    x, aux = _hidden(cfg, params, batch["tokens"])
+    aux)``, S counting a ViT frontend's patches."""
+    params = cast_for_compute(cfg, params)
+    x, aux = _hidden(cfg, params, batch)
     return _unembed(cfg, params, x), aux
 
 
@@ -296,10 +385,12 @@ def loss_fn(
     ``batch["labels"]`` with the padded vocabulary masked out of the
     float32 softmax, plus ``z_loss * mean(lse**2)`` and ``aux_weight *
     aux`` (the MoE balance loss).  Returns ``(total, {"nll", "aux",
-    "lse"})``, ``lse`` the mean log-sum-exp.  A ViT-patch frontend raises
-    through :func:`check_supported`, as the forward does."""
+    "lse"})``, ``lse`` the mean log-sum-exp.  With a ViT-patch frontend
+    the loss covers the text positions only."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"]
+    if cfg.frontend == "vit_patches":
+        logits = logits[:, -labels.shape[1]:]
     logits = logits.float()
     vocab_ok = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     logits = torch.where(vocab_ok, logits, -1e30)
@@ -314,8 +405,8 @@ def prefill(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
     """Prefill forward: full-sequence compute, last-position logits only
     ``(B, padded vocab)`` (serving never materializes the (B, S, vocab)
     logits)."""
-    params = _step_params(cfg, params)
-    x, _ = _hidden(cfg, params, batch["tokens"])
+    params = cast_for_compute(cfg, params)
+    x, _ = _hidden(cfg, params, batch)
     return _unembed(cfg, params, x[:, -1:])[:, 0]
 
 
@@ -324,52 +415,84 @@ def prefill(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class EncDecCache(NamedTuple):
+    """An encoder-decoder's decode cache: each decoder layer's
+    self-attention cache (``max_target_len`` slots) and its static cross
+    cache of the encoder's K and V (``seq_len`` frames), which the caller
+    fills from :func:`encode` and each layer's
+    :func:`~repro_torch.models.attention.cross_kv`."""
+
+    layers: list[attn.KVCache]
+    cross: list[attn.KVCache]
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, seq_len: int, dtype: torch.dtype, *, device=DEFAULT_DEVICE
-) -> list[attn.KVCache | mb.MambaCache]:
+) -> list[attn.KVCache | mb.MambaCache] | EncDecCache:
     """Decode cache, one zeroed entry per layer: a
     :class:`~repro_torch.models.attention.KVCache` for an attention layer
     (an SWA layer's is a ring of ``sliding_window`` slots) or a
     :class:`~repro_torch.models.mamba.MambaCache` for a mamba layer (conv
-    window in ``dtype``, state in float32)."""
-    check_supported(cfg)
+    window in ``dtype``, state in float32).  An encoder-decoder gets an
+    :class:`EncDecCache`: self-attention caches sized by
+    ``max_target_len`` and zeroed cross caches of ``seq_len`` encoder
+    frames."""
     dev = resolve_device(device)
+    size = cfg.max_target_len if cfg.is_encoder_decoder else seq_len
     cache = []
     for i in range(cfg.n_layers):
         mixer, akind, _ = slot_kinds(cfg, i % cfg.group_size)
         if mixer == "attn":
-            cache.append(
-                attn.init_kv_cache(cfg, batch, seq_len, kind=akind, dtype=dtype, device=dev)
-            )
+            cache.append(attn.init_kv_cache(cfg, batch, size, kind=akind, dtype=dtype, device=dev))
         else:
             cache.append(mb.init_mamba_cache(cfg, batch, dtype, dev))
-    return cache
+    if not cfg.is_encoder_decoder:
+        return cache
+    cross = [attn.init_kv_cache(cfg, batch, seq_len, kind="full", dtype=dtype, device=dev)
+             for _ in range(cfg.n_layers)]
+    return EncDecCache(cache, cross)
 
 
 def decode_step(
     cfg: ModelConfig,
     params: LM,
-    cache: list[attn.KVCache | mb.MambaCache],
+    cache: list[attn.KVCache | mb.MambaCache] | EncDecCache,
     tokens: torch.Tensor,  # (B, 1) int
     pos: int,  # position of this token
     *,
     cast: bool = True,
-) -> tuple[torch.Tensor, list[attn.KVCache | mb.MambaCache]]:
+) -> tuple[torch.Tensor, list[attn.KVCache | mb.MambaCache] | EncDecCache]:
     """One token for every sequence in the batch against the cache.
     Returns ``(logits (B, padded vocab), cache)``; the cache is updated in
     place (the reference returns a new one).  ``cast=False`` takes
     ``params`` as :func:`cast_for_compute` returned them, so a decode loop
-    casts once rather than walking every parameter on every step."""
+    casts once rather than walking every parameter on every step.  An
+    encoder-decoder adds ``dec_pos[pos]``, uses no rotary embeddings and
+    attends each layer's cross cache after its self-attention.  A ViT
+    frontend's decode sees tokens only, as the reference's does."""
     if cast:
-        params = _step_params(cfg, params)
+        params = cast_for_compute(cfg, params)
+    encdec = cfg.is_encoder_decoder
     x = _embed_tokens(cfg, params, tokens)
+    if encdec:
+        # the reference's dynamic_slice clamps pos into the table, so a
+        # position past max_target_len - 1 reads the last row; so does this
+        x = x + params.dec_pos[min(pos, cfg.max_target_len - 1)].to(x.dtype)
+    layer_cache = cache.layers if encdec else cache
     for i, layer in enumerate(params.layers):
         mixer, akind, ffn = slot_kinds(cfg, i % cfg.group_size)
         h = rms_norm(x, layer.norm1, cfg.norm_eps)
         if mixer == "attn":
-            h, cache[i] = attn.mha_decode(cfg, layer.mixer, h, cache[i], pos, kind=akind)
+            h, layer_cache[i] = attn.mha_decode(cfg, layer.mixer, h, layer_cache[i], pos,
+                                                kind=akind, use_rope=not encdec)
         else:
-            h, cache[i] = mb.mamba_decode(cfg, layer.mixer, h, cache[i])
-        x, _ = _ffn(cfg, layer, x + h, ffn)
+            h, layer_cache[i] = mb.mamba_decode(cfg, layer.mixer, h, layer_cache[i])
+        x = x + h
+        if encdec:
+            h = rms_norm(x, layer.norm_cross, cfg.norm_eps)
+            h, _ = attn.mha_decode(cfg, layer.cross, h, cache.cross[i], pos, cross=True,
+                                   use_rope=False)
+            x = x + h
+        x, _ = _ffn(cfg, layer, x, ffn)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _unembed(cfg, params, x)[:, 0], cache

@@ -53,9 +53,15 @@ roofline via :func:`~repro_torch.core.meshsig.advisor.
 rank_numa_placements`, no simulation) → ``stale`` (this handle's last
 known good exact answer) → ``fallback`` (an even spread).  Every
 :class:`Advice` is tagged with its fidelity, and degraded answers are
-never cached.  Fault injection (:mod:`repro_torch.serve.faults`) hooks
-the batcher, the batch dispatch, the search attempts, the ranked rung,
-the schedule worker and the deadline clock.
+never cached.  The ranked rung runs on a thread of its own
+(``advisor-rank``) under a time budget (:data:`RANK_BUDGET_S`): past it, the
+next rung answers, so a degraded answer comes within the query's deadline
+plus that budget even when the rung's many small tensor operations wait
+for the interpreter lock behind the batcher and a running search (the
+reference's rung runs inline).  Fault injection
+(:mod:`repro_torch.serve.faults`) hooks the batcher, the batch dispatch,
+the search attempts, the ranked rung, the schedule worker and the
+deadline clock.
 """
 
 from __future__ import annotations
@@ -255,6 +261,14 @@ def _advise_batch(
     return best, obj[rows, best], bandwidth
 
 
+# The longest a degraded query waits for the ranked rung before the next
+# rung answers: a degraded answer comes within the query's deadline plus
+# this.  The rung takes 15-24 ms on an idle H100 service and up to 0.4 s
+# in the chaos record while a search runs (PERF.md §6); 0.5 s keeps a
+# 0.25 s deadline plus the budget well inside the record's 1 s grace.
+RANK_BUDGET_S = 0.5
+
+
 class AdvisorService:
     """Online placement advisor over a registry of machines, computing on
     ``device`` (``"cuda"`` unless the caller asks for the CPU).
@@ -331,6 +345,8 @@ class AdvisorService:
             max_workers=max(1, int(search_workers)),
             thread_name_prefix="advisor-search",
         )
+        # the ladder's ranked rung, so a query can stop waiting for it
+        self._rank_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="advisor-rank")
         self._batcher = threading.Thread(
             target=self._batcher_main, name="advisor-batcher", daemon=True
         )
@@ -537,15 +553,18 @@ class AdvisorService:
                  sig: QuerySignature, n_threads: int, t0: float) -> Advice:
         """Serve a deadline-missed query off the ladder: signature-only
         ranking → last known good exact answer → even spread.  Never
-        blocks on the simulator and never caches its answer (the next
-        identical query retries the exact path)."""
+        blocks on the simulator, waits at most :data:`RANK_BUDGET_S` for the
+        ranking (on the ``advisor-rank`` thread, on the service's device;
+        a ranking not yet started when the budget runs out is cancelled,
+        one under way finishes unread) and never caches its answer (the
+        next identical query retries the exact path)."""
         advice = None
         try:
-            self.faults.fire("rank")
-            best = rank_numa_placements(
-                spec, sig.workload(n_threads, device=self.device), top_k=1,
-                max_placements=self.advisor_max_placements,
-            )[0]
+            ranking = self._rank_pool.submit(self._rank, spec, sig, n_threads)
+            try:
+                best = ranking.result(RANK_BUDGET_S)
+            finally:
+                ranking.cancel()
             advice = Advice(
                 placement=best.placement,
                 predicted_bandwidth=float("nan"),
@@ -575,6 +594,15 @@ class AdvisorService:
         self.metrics.record_query("degraded", time.perf_counter() - t0)
         self.metrics.record_fidelity(advice.fidelity)
         return advice
+
+    def _rank(self, spec: MachineSpec, sig: QuerySignature, n_threads: int):
+        """The ranked rung's pick: the best placement of the signature-only
+        ranking."""
+        self.faults.fire("rank")
+        return rank_numa_placements(
+            spec, sig.workload(n_threads, device=self.device), top_k=1,
+            max_placements=self.advisor_max_placements,
+        )[0]
 
     # -- phased queries --------------------------------------------------------
 
@@ -922,6 +950,7 @@ class AdvisorService:
         try:
             self._batcher.join(timeout)
             self._search_pool.shutdown(wait=False, cancel_futures=True)
+            self._rank_pool.shutdown(wait=False, cancel_futures=True)
             with self._cond:
                 pending = [it for g in self._pending.values() for it in g.items]
                 self._pending.clear()

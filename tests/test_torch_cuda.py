@@ -149,6 +149,13 @@ FLASH_EDGE_CASES = [
     (1, 4, 2, 130, 400, 128, {}),
     (1, 4, 2, 512, 512, 128, dict(window=192)),
     (1, 2, 1, 2048, 2048, 128, {}),
+    # whisper's non-causal attention, MHA at dh 64: cross-attention with Sq
+    # < Skv (the right-aligned q offset must change nothing without a mask)
+    # and Sq > Skv, and ragged sizes no multiple of a tile
+    (1, 4, 4, 40, 75, 64, dict(causal=False)),
+    (1, 4, 4, 75, 40, 64, dict(causal=False)),
+    (2, 16, 16, 130, 333, 64, dict(causal=False)),
+    (1, 4, 4, 300, 300, 64, dict(causal=False)),
 ]
 
 
@@ -365,6 +372,34 @@ def test_reduced_prefill_on_the_card_matches_cpu(cuda, name):
     got = step(params.to(cuda), {"tokens": tokens.to(cuda)})
     torch.cuda.synchronize()
     assert flash_kernel.flash_attention.launches == before + cfg.n_layers
+    scale = float(want.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "internvl2-2b"])
+def test_reduced_encdec_and_vit_prefill_on_the_card_matches_cpu(cuda, name):
+    """Reduced whisper (40 encoder frames: K1 once per encoder layer and
+    per decoder layer's self- and cross-attention) and reduced internvl2
+    (8 patch embeddings before the tokens) on the card against the CPU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = get_config(name).reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)), dtype=torch.int32)
+    key, rows = ("enc_frames", 40) if cfg.is_encoder_decoder else ("patch_embeds",
+                                                                   cfg.frontend_tokens)
+    batch = {"tokens": tokens,
+             key: torch.as_tensor(rng.standard_normal((2, rows, cfg.d_model)), dtype=torch.float32)}
+    step = make_prefill_step(cfg)
+    want = step(params, batch)
+    before = flash_kernel.flash_attention.launches
+    got = step(params.to(cuda), {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    calls = cfg.n_layers + (cfg.encoder_layers + cfg.n_layers if cfg.is_encoder_decoder else 0)
+    assert flash_kernel.flash_attention.launches == before + calls
     scale = float(want.float().abs().max())
     assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2 * scale
 
@@ -701,6 +736,11 @@ FLASH_BWD_CASES = [
     (1, 2, 1, 150, 150, 256, dict(logit_cap=5.0)),
     (1, 4, 2, 200, 130, 64, {}),
     (1, 16, 2, 140, 140, 80, dict(window=70)),
+    # whisper's non-causal cross-attention (MHA, dh 64), Sq < Skv and Sq >
+    # Skv, ragged: the dK/dV pass's row range must not take the q offset
+    (1, 4, 4, 40, 75, 64, dict(causal=False)),
+    (1, 4, 4, 75, 40, 64, dict(causal=False)),
+    (2, 16, 16, 130, 333, 64, dict(causal=False)),
 ]
 # each gradient within this share of its largest magnitude: float32
 # products in both, bf16 outputs rounded once
@@ -738,7 +778,7 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, B, H, Kv, Sq, 
         assert bool(torch.isfinite(g.float()).all()), name
         assert _rel_to_scale(g, w) <= FLASH_BWD_TOL[dtype], name
         assert torch.equal(g, g2), name
-    if Sq > Skv:
+    if Sq > Skv and kwargs.get("causal", True):  # non-causal rows see every key
         assert not first[0][:, :, : Sq - Skv].any()
     for name in kwargs:
         without = attention_bwd_ref(q, k, v, dout, **{o: x for o, x in kwargs.items() if o != name})

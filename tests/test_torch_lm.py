@@ -35,10 +35,10 @@ of ``decode_step``s against a bf16 cache and ``generate``:
 
 The reference's attention core on this path is ``blocked_attention``;
 the port's is K1's plain version (the CPU path of ``mha_flash``), and
-its scan K2's plain version.  The enc-dec and ViT archs raise
-``NotImplementedError``.  The configs themselves (all ten, published and
-reduced) and the cross-attention pieces the enc-dec slice will use are
-held against the reference too.
+its scan K2's plain version.  The enc-dec and ViT archs (whisper-medium,
+internvl2-2b) are held in ``tests/test_torch_encdec_vit.py``.  The
+configs themselves (all ten, published and reduced) and the
+cross-attention pieces are held against the reference too.
 """
 
 import dataclasses
@@ -304,17 +304,6 @@ def test_routing_feeds_state_only_in_jamba():
     assert [n for n in ARCHS if M.routing_feeds_state(get_config(n).reduced())] == [
         "jamba-1.5-large-398b"]
     assert M.routing_feeds_state(get_config("jamba-1.5-large-398b"))
-
-
-@pytest.mark.parametrize("name", ["whisper-medium", "internvl2-2b"])
-def test_archs_outside_the_slice_raise(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_cache(cfg, 1, 8, torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.forward(cfg, None, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
 
 
 ALL_ARCHS = ["deepseek-7b", "falcon-mamba-7b", "gemma2-9b", "h2o-danube-1.8b", "internvl2-2b",

@@ -162,6 +162,51 @@ def test_ladder_falls_to_stale_then_fallback(faulty_service):
     assert adv.placement == exact.placement and adv.objective == exact.objective
 
 
+def test_ranked_rung_over_its_budget_yields_to_the_next_rung(monkeypatch):
+    """The ranked rung waits at most ``RANK_BUDGET_S``.  With the batch
+    tier held up (a slow batch) and the rung held up too (a slow rank),
+    the query answers stale within its deadline plus the budget; a second
+    degraded query, whose ranking queues behind the held one, does too,
+    and its ranking is cancelled unrun.  Once the rung is free it answers
+    ranked again.  Every ranking runs on the ``advisor-rank`` thread on
+    the service's device."""
+    from repro_torch.serve import service as service_mod
+
+    ran = []
+    rank = service_mod.rank_numa_placements
+
+    def recorded(machine, workload, **kwargs):
+        ran.append((threading.current_thread().name, workload.device.type))
+        return rank(machine, workload, **kwargs)
+
+    monkeypatch.setattr(service_mod, "rank_numa_placements", recorded)
+    fi = FaultInjector()
+    deadline_s, budget_s, hold_s = 0.25, service_mod.RANK_BUDGET_S, 2.0
+    svc = AdvisorService(device=CPU, max_wait_s=0.002, faults=fi)
+    try:
+        fp = svc.register(port.E5_2630_V3)
+        exact = svc.warmup(fp, 8)  # fills the last-known-good cache
+        ran.clear()
+        fi.inject_slow("batch", hold_s, times=1)
+        fi.inject_slow("rank", hold_s, times=1)
+        for seed in (31, 32):
+            t0 = time.perf_counter()
+            adv = svc.query(fp, _sigs(1, seed=seed)[0], 8, deadline_s=deadline_s)
+            wall = time.perf_counter() - t0
+            assert adv.fidelity == "stale" and adv.tier == "degraded"
+            assert adv.placement == exact.placement
+            assert wall < deadline_s + budget_s + 0.5, wall  # not the 2 s hold
+        time.sleep(hold_s + 0.5)  # the held ranking and the slow batch finish
+        assert len(ran) == 1  # the held ranking ran late; the queued one never ran
+        fi.inject_error("batch", times=1)
+        assert svc.query(fp, _sigs(1, seed=33)[0], 8, deadline_s=5.0).fidelity == "ranked"
+        assert ran == [("advisor-rank_0", "cpu")] * 2
+        assert svc.metrics.snapshot()["fidelity_counts"]["stale"] == 2
+    finally:
+        fi.clear()
+        svc.close()
+
+
 def test_ladder_fallback_is_even_spread():
     fi = FaultInjector()
     svc = AdvisorService(device=CPU, max_wait_s=0.002, faults=fi)
