@@ -1471,12 +1471,12 @@ def resilience_service(fi, deadline_s: float, device: str = "cuda"):
     return service, sweep_fp, search_fp, hot, search_sigs
 
 
-def chaos_record(service, fi, sweep_fp, search_fp, hot, search_sigs, *, n_chaos: int = 1000,
-                 deadline_s: float = 0.25, search: bool = True) -> dict:
+def chaos_record(service, fi, sweep_fp, search_fp, hot, search_sigs, *,
+                 n_chaos: int = 1000) -> dict:
     """benchmarks/serve_resilience.py's chaos-mixed record: ``n_chaos``
     queries (60% hot) from 4 workers under 12 slow (0.3 s) and 8 failing
     batches, 2 batcher deaths and 2 search failures, while one snc2-8s
-    search query runs (unless ``search`` is false).  Returns the answers,
+    search query runs.  Returns the answers,
     each query's wall seconds and the seconds of it spent in the
     degradation ladder, the wall time, the faults fired and the search's
     answer; the injector is cleared on return."""
@@ -1514,8 +1514,7 @@ def chaos_record(service, fi, sweep_fp, search_fp, hot, search_sigs, *, n_chaos:
     t0 = time.perf_counter()
     for t in threads:
         t.start()
-    search_adv = (service.query(search_fp, search_sigs[1], 32, deadline_s=30.0)
-                  if search else None)
+    search_adv = service.query(search_fp, search_sigs[1], 32, deadline_s=30.0)
     for t in threads:
         t.join(timeout=300)
     wall = time.perf_counter() - t0
@@ -1543,6 +1542,7 @@ def phase_service_resilience() -> None:
     from repro_torch.core.numa import calibrate as C
     from repro_torch.launch.advisor_serve import signature_pool
     from repro_torch.serve import FIDELITIES, AdvisorService, FaultInjector, Recalibrator
+    from repro_torch.serve.service import RANK_BUDGET_S
 
     deadline_s, grace_s, n_chaos = 0.25, 1.0, 1000
     fi = FaultInjector()
@@ -1550,7 +1550,7 @@ def phase_service_resilience() -> None:
     try:
         # -- chaos-mixed: 1,000 queries from 4 workers while faults fire
         chaos = chaos_record(service, fi, sweep_fp, search_fp, hot, search_sigs,
-                             n_chaos=n_chaos, deadline_s=deadline_s)
+                             n_chaos=n_chaos)
         t_cleared = time.perf_counter()
         answers, walls, wall = chaos["answers"], chaos["walls"], chaos["wall"]
         search_adv = chaos["search_adv"]
@@ -1682,12 +1682,23 @@ def phase_service_resilience() -> None:
         fi.inject_error("rank", times=1)
         fallback = service.query(lone, signature_pool(1, seed=53)[0], 24)
         rungs["fallback"] = fallback.fidelity
+        # the rung's budget cuts in: the batch and the rung held past it,
+        # the answer comes stale by the deadline plus the budget
+        fi.inject_slow("batch", 0.5, times=1)
+        fi.inject_slow("rank", RANK_BUDGET_S + 0.5, times=1)
+        t0 = time.perf_counter()
+        rungs["budget"] = service.query(sweep_fp, signature_pool(1, seed=54)[0], 24).fidelity
+        budget_wall = time.perf_counter() - t0
+        time.sleep(1.0)  # the held rung and batch finish
         fi.clear()
         emit("service_resilience", record="ladder", rungs=rungs,
-             fallback_placement=list(fallback.placement))
-        check(rungs == {"ranked": "ranked", "stale": "stale", "fallback": "fallback"},
-              f"ladder rungs {rungs}")
+             fallback_placement=list(fallback.placement), budget_wall_ms=budget_wall * 1e3,
+             budget_bound_ms=(deadline_s + RANK_BUDGET_S) * 1e3)
+        check(rungs == {"ranked": "ranked", "stale": "stale", "fallback": "fallback",
+                        "budget": "stale"}, f"ladder rungs {rungs}")
         check(fallback.placement == (6, 6, 6, 6), f"fallback {fallback.placement} is no even spread")
+        check(budget_wall < deadline_s + RANK_BUDGET_S + 0.15,
+              f"the held rung answered after {budget_wall} s")
     finally:
         service.close()
 

@@ -54,11 +54,12 @@ rank_numa_placements`, no simulation) → ``stale`` (this handle's last
 known good exact answer) → ``fallback`` (an even spread).  Every
 :class:`Advice` is tagged with its fidelity, and degraded answers are
 never cached.  The ranked rung runs on a thread of its own
-(``advisor-rank``) under a time budget (:data:`RANK_BUDGET_S`): past it, the
-next rung answers, so a degraded answer comes within the query's deadline
-plus that budget even when the rung's many small tensor operations wait
-for the interpreter lock behind the batcher and a running search (the
-reference's rung runs inline).  Fault injection
+(``advisor-rank``) under a time budget (:data:`RANK_BUDGET_S`) counted
+past the query's deadline from the query's own start: past it, the next
+rung answers, so a degraded answer comes within the query's deadline plus
+that budget even when the rung's many small tensor operations wait for the
+interpreter lock behind the batcher and a running search (the reference's
+rung runs inline).  Fault injection
 (:mod:`repro_torch.serve.faults`) hooks the batcher, the batch dispatch,
 the search attempts, the ranked rung, the schedule worker and the
 deadline clock.
@@ -261,11 +262,11 @@ def _advise_batch(
     return best, obj[rows, best], bandwidth
 
 
-# The longest a degraded query waits for the ranked rung before the next
-# rung answers: a degraded answer comes within the query's deadline plus
-# this.  The rung takes 15-24 ms on an idle H100 service and up to 0.4 s
-# in the chaos record while a search runs (PERF.md §6); 0.5 s keeps a
-# 0.25 s deadline plus the budget well inside the record's 1 s grace.
+# How far past its deadline a degraded query waits for the ranked rung,
+# counted from the query's start, before the next rung answers.  The rung
+# takes 15-24 ms on an idle H100 service and up to 0.47 s in the chaos
+# record while a search runs (PERF.md §6); a 0.25 s deadline plus 0.5 s
+# leaves the record's 1 s grace half a second for a waiter that wakes late.
 RANK_BUDGET_S = 0.5
 
 
@@ -485,7 +486,8 @@ class AdvisorService:
             # deadline expired or the exact tier failed: degrade
             spec, handle, epoch = self._resolve(machine)
             return self._degrade(
-                spec, handle, epoch, signature.canonical(), int(n_threads), t0
+                spec, handle, epoch, signature.canonical(), int(n_threads), t0,
+                t0 + deadline_s + RANK_BUDGET_S,
             )
 
     def submit(self, machine, signature: QuerySignature, n_threads: int) -> Future:
@@ -550,19 +552,21 @@ class AdvisorService:
     # -- degradation ladder ----------------------------------------------------
 
     def _degrade(self, spec: MachineSpec, handle: str, epoch: int,
-                 sig: QuerySignature, n_threads: int, t0: float) -> Advice:
+                 sig: QuerySignature, n_threads: int, t0: float,
+                 t_rank_end: float) -> Advice:
         """Serve a deadline-missed query off the ladder: signature-only
         ranking → last known good exact answer → even spread.  Never
-        blocks on the simulator, waits at most :data:`RANK_BUDGET_S` for the
-        ranking (on the ``advisor-rank`` thread, on the service's device;
-        a ranking not yet started when the budget runs out is cancelled,
-        one under way finishes unread) and never caches its answer (the
-        next identical query retries the exact path)."""
+        blocks on the simulator, waits for the ranking (on the
+        ``advisor-rank`` thread, on the service's device) until
+        ``t_rank_end`` on the ``time.perf_counter`` clock (a ranking not
+        yet started then is cancelled, one under way finishes unread) and
+        never caches its answer (the next identical query retries the
+        exact path)."""
         advice = None
         try:
             ranking = self._rank_pool.submit(self._rank, spec, sig, n_threads)
             try:
-                best = ranking.result(RANK_BUDGET_S)
+                best = ranking.result(max(0.0, t_rank_end - time.perf_counter()))
             finally:
                 ranking.cancel()
             advice = Advice(

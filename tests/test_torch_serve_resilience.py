@@ -207,6 +207,55 @@ def test_ranked_rung_over_its_budget_yields_to_the_next_rung(monkeypatch):
         svc.close()
 
 
+class _LateWaker(FaultInjector):
+    """A fault injector whose deadline clock, once armed, stalls the
+    armed thread's second read by ``stall_s``: the waiter looks up its
+    remaining wait that much late, as a thread does that wakes late when
+    others hold the interpreter lock."""
+
+    def __init__(self):
+        super().__init__()
+        self.stall_s, self.thread, self.reads = 0.0, None, 0
+
+    def now(self) -> float:
+        if threading.get_ident() == self.thread:
+            self.reads += 1
+            if self.reads == 2:
+                time.sleep(self.stall_s)
+        return super().now()
+
+
+def test_degraded_answer_is_bounded_from_the_query_start():
+    """The ranked rung's budget counts from the query's own start, not
+    from the moment the waiter gives up: a waiter that looks at the clock
+    0.6 s late, with the exact tier and the rung both held up, answers
+    stale within its deadline plus ``RANK_BUDGET_S`` of its start, not a
+    full budget after it woke."""
+    from repro_torch.serve import service as service_mod
+
+    fi = _LateWaker()
+    deadline_s, budget_s, hold_s = 0.25, service_mod.RANK_BUDGET_S, 2.0
+    svc = AdvisorService(device=CPU, max_wait_s=0.002, faults=fi)
+    try:
+        fp = svc.register(port.E5_2630_V3)
+        exact = svc.warmup(fp, 8)  # fills the last-known-good cache
+        fi.inject_slow("batch", hold_s, times=1)
+        fi.inject_slow("rank", hold_s, times=1)
+        fi.stall_s, fi.thread = 0.6, threading.get_ident()
+        t0 = time.perf_counter()
+        adv = svc.query(fp, _sigs(1, seed=34)[0], 8, deadline_s=deadline_s)
+        wall = time.perf_counter() - t0
+        assert fi.reads == 2
+        assert adv.fidelity == "stale" and adv.placement == exact.placement
+        # the stall alone is 0.6 s; a budget counted from the wake-up
+        # would answer at about 1.1 s
+        assert 0.6 <= wall < deadline_s + budget_s + 0.15, wall
+        time.sleep(hold_s)  # the held ranking and the slow batch finish
+    finally:
+        fi.clear()
+        svc.close()
+
+
 def test_ladder_fallback_is_even_spread():
     fi = FaultInjector()
     svc = AdvisorService(device=CPU, max_wait_s=0.002, faults=fi)
