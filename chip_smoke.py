@@ -127,7 +127,17 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    of GQA 32:4 attention and 128 experts top-8, 61.1 GB of bf16 weights,
    alone on the card): prefill of 2 x 2048 tokens (K1 launched once per
    layer) with the count of (token, expert) assignments dropped over
-   capacity, and generate (4 x 16 prompt + 16 tokens).
+   capacity, and generate (4 x 16 prompt + 16 tokens);
+17. lm_mesh — serving across ranks at one rank: a process group of one
+   (``cpu:gloo,cuda:nccl``) and ``--mesh single``'s mesh, the reduced
+   llama3-8b, gemma2-9b, falcon-mamba-7b, qwen3-moe-30b-a3b and
+   jamba-1.5-large-398b through the mesh code on the card against the same
+   code on the CPU, then qwen3-moe-30b-a3b at full size (the model of 16):
+   the gather path's prefill of 2 x 2048 against lm_qwen3_moe's
+   ``--mesh none`` logits (K1 48 times), the all-to-all path's prefill
+   with its dropped assignments beside the gather path's, and generate
+   (4 x 16 prompt + 16 tokens) through the no-gather decode path against
+   lm_qwen3_moe's tokens.
 
 Every profile whose kernel has a launch counter is held to it
 (``watched_complete``).  Then one line listing every kernel of the port
@@ -3087,7 +3097,7 @@ def phase_lm_qwen3_moe() -> None:
     prompt, new = 16, 16
     p16 = torch.randint(0, cfg.vocab_size, (4, prompt), generator=gen.manual_seed(2),
                         device="cuda", dtype=torch.int32)
-    _, gen_s = timed_generate(cfg, params, p16, new)
+    seqs16, gen_s = timed_generate(cfg, params, p16, new)
     steps_run = prompt + new - 1
     decode = make_decode_step(cfg, cast=False)
     cache = M.init_cache(cfg, 4, prompt + 2, torch.bfloat16, device="cuda")
@@ -3109,6 +3119,138 @@ def phase_lm_qwen3_moe() -> None:
         step_profile=step_profile,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
+    del cache
+    return dict(params=params, batch=batch, logits=logits, dropped=sum(dropped),
+                prompts=p16, seqs=seqs16, gen_s=gen_s)
+
+
+MESH_ARCHS = ("llama3-8b", "gemma2-9b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+              "jamba-1.5-large-398b")
+
+
+def phase_lm_mesh(qwen3: dict) -> None:
+    """Serving across ranks on one card: the mesh code (``parallel``,
+    ``launch.mesh``, the sharded layers and MoE paths) at one rank, where
+    every collective spans one process, so the mesh paths must reproduce
+    the no-mesh ones.  The reduced archs on the card against the same code
+    on the CPU (bf16 prefill within rel 2e-2, jamba 4e-2 with its routers
+    zeroed; float32 tokens equal), then qwen3-moe-30b-a3b at full size
+    (``qwen3`` is what phase_lm_qwen3_moe returned): its weights exceed a
+    quarter of the card, so they stay sharded over ``efsdp`` and decode
+    takes the no-gather path."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import context as ctx
+
+    t_start = time.perf_counter()
+    store = ROOT / "build" / "chip_smoke_mesh_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_production_mesh()
+        check(mesh.shape == {"data": 1, "model": 1}, f"--mesh single at one rank is {mesh.shape}")
+        B, prompt, gen = 2, 16, 8
+        for name in MESH_ARCHS:
+            cfg = get_config(name).reduced()
+            cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+            card_params = copy.deepcopy(cpu_params).to("cuda")
+            prompts = torch.as_tensor(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (B, prompt)), dtype=torch.int32)
+            hybrid = M.routing_feeds_state(cfg)
+            tol = 4e-2 if hybrid else 2e-2
+            cpu16, card16 = (zero_routers(p) if hybrid else p for p in (cpu_params, card_params))
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            with mesh_lib.cell_context(mesh, cfg, ShapeConfig("p", prompt, B, "prefill")):
+                step = make_prefill_step(cfg)
+                card_logits = step(mesh_lib.shard_params(cfg, card16), {"tokens": prompts.cuda()})
+                gap = rel_gap(card_logits, step(mesh_lib.shard_params(cfg, cpu16),
+                                                {"tokens": prompts}))
+            with mesh_lib.cell_context(mesh, cfg32, ShapeConfig("d", prompt + gen, B, "decode")):
+                card_seqs = generate(cfg32, mesh_lib.shard_params(cfg32, card_params), prompts,
+                                     prompt + gen, gen, device="cuda").cpu()
+                cpu_seqs = generate(cfg32, mesh_lib.shard_params(cfg32, cpu_params), prompts,
+                                    prompt + gen, gen, device="cpu")
+            equal = bool(torch.equal(card_seqs, cpu_seqs))
+            emit("lm_mesh_reduced", arch=cfg.name, mesh=mesh.shape, batch=B, prompt=prompt,
+                 gen=gen, prefill_logits_rel_gap_vs_cpu=gap, prefill_tolerance=tol,
+                 prefill_routers_zeroed=hybrid, f32_tokens_equal_cpu=equal)
+            check(gap <= tol, f"{name}: mesh prefill on the card differs from the CPU by {gap}")
+            check(equal, f"{name}: mesh float32 tokens differ between the card and the CPU")
+        reduced_s = time.perf_counter() - t_start
+
+        cfg = get_config("qwen3-moe-30b-a3b")
+        params, batch = qwen3["params"], qwen3["batch"]
+        B, S = batch["tokens"].shape
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("serve", S, B, "prefill")):
+            efsdp = ctx.physical_axes("efsdp")
+            local = mesh_lib.shard_params(cfg, params)
+            step = make_prefill_step(cfg)
+            with moe_mod.drop_tally() as drops:
+                logits, k1, k2 = path_run(lambda: step(local, batch))
+            walls = wall_times(lambda: step(local, batch), 2)
+        cfg_a2a = dataclasses.replace(cfg, moe_impl="a2a")
+        with mesh_lib.cell_context(mesh, cfg_a2a, ShapeConfig("serve", S, B, "prefill")):
+            with moe_mod.drop_tally() as a2a_drops:
+                a2a_logits, a2a_k1, _ = path_run(lambda: make_prefill_step(cfg_a2a)(local, batch))
+            a2a_s = min(wall_times(lambda: make_prefill_step(cfg_a2a)(local, batch), 1))
+        want = qwen3["logits"]
+        gap = rel_gap(logits, want)
+        p16 = qwen3["prompts"]
+        new = qwen3["seqs"].shape[1] - p16.shape[1]
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("serve", p16.shape[1] + new,
+                                                          p16.shape[0], "decode")):
+            decode_path = "no-gather" if ctx.physical_axes("efsdp") else "gather"
+            seqs, gen_s = timed_generate(cfg, local, p16, new)
+        # the no-mesh generate once more, after the mesh's: the decode steps
+        # are host-bound, and the first generate of lm_qwen3_moe ran first
+        _, none_after_s = timed_generate(cfg, params, p16, new)
+        steps_run = p16.shape[1] + new - 1
+        emit(
+            "lm_mesh_qwen3",
+            arch=cfg.name, mesh=mesh.shape, efsdp=list(efsdp), decode_path=decode_path,
+            weights_shared_with_no_mesh=local is params,
+            batch=B, seq=S,
+            gather_logits_rel_gap_vs_no_mesh=gap,
+            gather_logits_max_abs_diff=float((logits.float() - want.float()).abs().max()),
+            gather_logits_bit_equal=bool(torch.equal(logits, want)),
+            gather_dropped_assignments=int(sum(int(d) for d in drops)),
+            no_mesh_dropped_assignments=qwen3["dropped"],
+            a2a_dropped_assignments=int(sum(int(d) for d in a2a_drops)),
+            a2a_logits_finite=bool(torch.isfinite(a2a_logits).all()),
+            a2a_logits_rel_gap_vs_gather=rel_gap(a2a_logits, logits),
+            k1_launches_per_prefill=k1, a2a_k1_launches_per_prefill=a2a_k1,
+            prefill_s=min(walls), prefill_s_runs=walls, prefill_tokens_per_s=B * S / min(walls),
+            a2a_prefill_s=a2a_s,
+            generate_s=gen_s, no_mesh_generate_s=qwen3["gen_s"],
+            no_mesh_generate_s_after=none_after_s,
+            generated_tokens_per_s=p16.shape[0] * new / gen_s,
+            ms_per_decode_step=1e3 * gen_s / steps_run,
+            tokens_equal_no_mesh=bool(torch.equal(seqs, qwen3["seqs"])),
+            nvidia_smi=nvidia_smi("name,power.limit"),
+            reduced_s=reduced_s, phase_s=time.perf_counter() - t_start,
+        )
+        check(local is params, "one rank's shards of qwen3 are not the whole model")
+        check(k1 == cfg.n_layers and a2a_k1 == cfg.n_layers,
+              f"mesh prefill launched K1 {k1} / {a2a_k1} times for {cfg.n_layers} layers")
+        check(k2 == 0, f"mesh prefill launched K2 {k2} times in a model without mamba layers")
+        check(gap <= 1e-3, f"one-rank mesh prefill differs from --mesh none by rel {gap}")
+        check(bool(torch.isfinite(a2a_logits).all()), "a2a prefill logits are not finite")
+        check(a2a_logits.shape == logits.shape, f"a2a logits {tuple(a2a_logits.shape)}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
 
 
 def main() -> int:
@@ -3155,7 +3297,7 @@ def main() -> int:
     scan_row["launches"] = phase_lm_falcon_mamba()  # one falcon-mamba-7b prefill call
     flash_bwd_row["launches"] = phase_lm_danube_train()  # one danube train step
     scan_bwd_row["launches"] = phase_lm_falcon_mamba_train()  # one falcon (8 layers) step
-    phase_lm_qwen3_moe()
+    phase_lm_mesh(phase_lm_qwen3_moe())
     print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -94,9 +94,12 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     value and dtype for dtype.  The reference stacks each slot's leaves
     over groups; layer ``g * group_size + s`` gets group ``g`` of
     ``groups["slot<s>"]``, encoder layer ``i`` entry ``i`` of
-    ``encoder.groups.slot0``.  MoE experts must be stored whole, one row an
-    expert (the reference's ``factor`` 1, as with no mesh); a tree whose
-    experts are split over ``d_ff`` raises ``ValueError``."""
+    ``encoder.groups.slot0``.  MoE experts may be stored whole (the
+    reference's ``factor`` 1, as with no mesh) or split over ``d_ff`` into
+    ``factor`` rows each (a tree initialised under a mesh whose expert
+    axis outnumbers the experts); rows that are no multiple of the experts
+    raise ``ValueError``.  A split tree runs only under a mesh of its
+    ``factor`` (:func:`lm_shards_from_reference`)."""
     from repro_torch.models.attention import Attention
     from repro_torch.models.layers import SwiGLU
     from repro_torch.models.mamba import Mamba
@@ -120,10 +123,9 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
         norm2 = ffn = None
         if ffn_kind == "moe":
             rows = slot["ffn"]["w_gate"].shape[1]
-            if rows != cfg.n_experts:
+            if rows % cfg.n_experts:
                 raise ValueError(
-                    f"{cfg.name}: the tree holds {rows} expert rows for {cfg.n_experts} "
-                    "experts (experts split over d_ff); the port takes whole experts"
+                    f"{cfg.name}: the tree holds {rows} expert rows for {cfg.n_experts} experts"
                 )
             ffn = MoE(*leaves(slot["ffn"], MoE.LEAVES, g))
         elif ffn_kind == "dense":
@@ -151,6 +153,15 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     return LM(t(tree["embed"]["table"]), layers, t(tree["final_norm"]), lm_head, **extra)
 
 
+def lm_shards_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
+    """This rank's shards (``launch.mesh.shard_params``) of the reference
+    tree under the active mesh and logical rules: the whole
+    :class:`~repro_torch.models.model.LM` with no mesh."""
+    from repro_torch.launch.mesh import shard_params
+
+    return shard_params(cfg, lm_params_from_reference(cfg, tree, device=device))
+
+
 def lm_params_to_reference(cfg, lm) -> dict:
     """The inverse of :func:`lm_params_from_reference`: the reference's
     nested parameter tree of numpy arrays, each slot's leaves stacked over
@@ -159,7 +170,12 @@ def lm_params_to_reference(cfg, lm) -> dict:
     :class:`~repro_torch.models.model.LM` or from a mapping of its
     parameter names to tensors (e.g. each leaf's ``.grad``).  Leaves keep
     their dtype, except bfloat16, which numpy lacks: it comes back as
-    float32 (exact)."""
+    float32 (exact).  Under a mesh an LM of this rank's shards is gathered
+    first (``launch.mesh.gather_params``; every rank takes part)."""
+    if hasattr(lm, "named_parameters"):
+        from repro_torch.launch.mesh import gather_params
+
+        lm = gather_params(cfg, lm)
     named = dict(lm.named_parameters()) if hasattr(lm, "named_parameters") else dict(lm)
 
     def host(t: torch.Tensor) -> np.ndarray:

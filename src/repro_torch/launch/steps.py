@@ -10,14 +10,16 @@ AdamW step.  ``params`` is a trainable :class:`~repro_torch.models.model.LM`
 :func:`param_tree`; both are updated in place and returned.  Its attention
 and mamba layers run K1 and K2 forward and backward as kernels on a card.
 The reference's mesh-only branches (the gradient's sharding pin and the
-hoisted parameter gather) have nothing to do on one device; they wait for
-ROADMAP §1 P14 (multi-card).
+hoisted parameter gather) wait for training across ranks, ROADMAP §1
+P14b; under a mesh the forward refuses a gradient.
 
 ``make_prefill_step(cfg)`` returns ``(params, batch) -> last-position
 logits``; ``make_decode_step(cfg)`` returns ``(params, cache, tokens,
 pos) -> (next_token, logits, cache)`` with greedy argmax; with
 ``cast=False`` its params must already be as ``cast_for_compute`` returns
-them (a decode loop casts once).  Both run without autograd.
+them (a decode loop casts once).  Both run without autograd, and under
+an active mesh (``launch.mesh.cell_context``) on this rank's shards of
+the parameters and cache, with whole batches in and out.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel import context as ctx
 
 
 def param_tree(params: M.LM) -> dict:
@@ -47,8 +50,9 @@ def param_tree(params: M.LM) -> dict:
 
 def auto_accum(cfg: ModelConfig, global_batch: int, *, target_micro: int = 2) -> int:
     """The accumulation factor that gives each device about
-    ``target_micro`` sequences a micro-batch (one device: dp = 1)."""
-    dp = 1
+    ``target_micro`` sequences a micro-batch, ``dp`` the batch axes' ranks
+    of the active mesh (1 without one)."""
+    dp = ctx.axis_size("batch")
     local = max(1, global_batch // dp)
     accum = max(1, local // target_micro)
     while global_batch % accum or (global_batch // accum) % dp:

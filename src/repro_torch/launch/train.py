@@ -3,8 +3,8 @@
 Reduced configs run on the CPU; on a card the same entry point takes the
 full config.  Fault tolerance: checkpoints every ``--save-every`` steps
 (async), resumes automatically, EWMA straggler monitoring, deterministic
-data replay.  ``--mesh`` other than ``none`` waits for ROADMAP §1 P14
-(multi-card).
+data replay.  ``--mesh`` other than ``none`` waits for training across
+ranks, ROADMAP §1 P14 (multi-card training).
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
         --steps 20 --batch 8 --seq 128
@@ -29,7 +29,7 @@ from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import StragglerMonitor, TrainLoop
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--reduced", action="store_true", help="smoke-scale config")
@@ -46,10 +46,12 @@ def main() -> None:
     ap.add_argument("--save-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     if args.mesh != "none":
-        raise NotImplementedError("--mesh waits for ROADMAP §1 P14 (multi-card)")
+        raise NotImplementedError(
+            "--mesh: training across ranks waits for ROADMAP §1 P14 (multi-card training); "
+            "serving runs across ranks (launch.serve --mesh)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -13,8 +13,13 @@ whose core is K1 (``mha_flash``), and the cached decode path.
   rounded to the cache dtype before the value product, as the reference
   does.  The cache is updated in place.
 * SWA decode uses a ring buffer of window size.
-* The reference's sharding annotations have no counterpart on one card
-  and are dropped.
+* Under a mesh (tensor parallelism over ``model``) each rank holds the
+  heads :func:`head_layout` gives it, their KV heads and their rows of
+  ``wo``; K1 and the decode cache run on those heads and the output
+  projection's partial sums are added over ``model``.  The reference's
+  decode cache is sequence-sharded instead (``cache_seq``); a head-sharded
+  cache computes the same function (the sequence-sharded one waits for
+  ROADMAP §1 P14c).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.models.layers import rope, softcap, weight
+from repro_torch.parallel import context as ctx
 
 _NEG_INF = -1e30
 
@@ -63,6 +69,56 @@ def init_attn_params(
     )
 
 
+class HeadLayout(NamedTuple):
+    """The heads one of ``tp`` model ranks holds: query heads ``q0`` ..
+    ``q0 + heads``, the KV heads ``kv0`` .. ``kv0 + kv_heads`` they read,
+    and rows ``wo0`` .. ``wo0 + wo_rows`` of ``wo``."""
+
+    q0: int
+    heads: int
+    kv0: int
+    kv_heads: int
+    wo0: int
+    wo_rows: int
+
+
+def head_layout(cfg: ModelConfig, tp: int, index: int) -> HeadLayout:
+    """Rank ``index`` of ``tp``'s heads.  With ``n_heads % tp == 0`` each
+    rank holds ``n_heads / tp`` whole heads and their rows of ``wo``; with
+    ``tp % n_heads == 0`` each head is held by ``tp / n_heads`` ranks, each
+    with an equal part of its ``dh`` rows of ``wo`` (GSPMD's row split).
+    The KV heads are those the rank's heads read, replicated where ranks
+    outnumber them.  Raises ``ValueError`` for any other split, or where a
+    rank's heads would read unequal numbers of KV heads' groups."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // kv
+    if h % tp == 0:
+        heads = h // tp
+        q0, wo0, wo_rows = index * heads, index * heads * dh, heads * dh
+    elif tp % h == 0 and dh % (tp // h) == 0:
+        rep = tp // h
+        heads, q0 = 1, index // rep
+        wo_rows = dh // rep
+        wo0 = q0 * dh + (index % rep) * wo_rows
+    else:
+        raise ValueError(f"{cfg.name}: {h} heads of {dh} do not split over {tp} model ranks")
+    if heads % g and g % heads:
+        raise ValueError(f"{cfg.name}: {heads} heads a rank straddle groups of {g} query heads")
+    kv0 = q0 // g
+    return HeadLayout(q0, heads, kv0, (q0 + heads - 1) // g - kv0 + 1, wo0, wo_rows)
+
+
+def _project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``out`` (..., heads * dh) through this rank's rows of ``wo``, summed
+    over ``model``: where a head's ranks split its rows, each takes its
+    part of the head's output columns."""
+    width, tp = wo.shape[0], ctx.physical_axes("tp")
+    if width < out.shape[-1]:
+        part = ctx.axis_index(tp) % (out.shape[-1] // width)
+        out = out[..., part * width : (part + 1) * width]
+    return ctx.matmul_psum(out, wo, tp)
+
+
 def mha(
     cfg: ModelConfig,
     p: Attention,
@@ -74,9 +130,11 @@ def mha(
     use_rope: bool = True,
     kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention
 ) -> torch.Tensor:
-    """Full multi-head attention layer (projections + K1 core)."""
+    """Full multi-head attention layer (projections + K1 core) over this
+    rank's heads (all of them with no mesh)."""
     B, S, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h, kv = p.wq.shape[1] // dh, p.wk.shape[1] // dh
     q = (x @ p.wq).reshape(B, S, h, dh)
     if kv_override is None:
         k = (x @ p.wk).reshape(B, S, kv, dh)
@@ -92,7 +150,7 @@ def mha(
         window=cfg.sliding_window if kind == "swa" else 0,
         logit_cap=cfg.attn_logit_softcap,
     )
-    return out.reshape(B, S, h * dh) @ p.wo
+    return _project_out(out.reshape(B, S, h * dh), p.wo)
 
 
 def cross_kv(
@@ -100,7 +158,8 @@ def cross_kv(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Project encoder output once; reused by every decode step."""
     B, S, _ = enc_out.shape
-    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    kv = p.wk.shape[1] // dh
     k = (enc_out @ p.wk).reshape(B, S, kv, dh)
     v = (enc_out @ p.wv).reshape(B, S, kv, dh)
     return k, v
@@ -144,7 +203,8 @@ def mha_decode(
     ``cache`` in place (slot ``pos``, or ``pos % window`` in an SWA ring)
     and returns ``(out (B, 1, D), cache)``."""
     B = x.shape[0]
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h, kv = p.wq.shape[1] // dh, cache.k.shape[2]
     G = h // kv
     S = cache.k.shape[1]
     windowed = kind == "swa" and S == cfg.sliding_window
@@ -175,5 +235,5 @@ def mha_decode(
         logits = torch.where(valid, logits, _NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w.to(v.dtype).float(), v.float())
-    out = out.to(x.dtype).reshape(B, 1, h * dh) @ p.wo
+    out = _project_out(out.to(x.dtype).reshape(B, 1, h * dh), p.wo)
     return out, cache

@@ -1,11 +1,17 @@
 """Shared layers (port of ``repro.models.layers``): norms, rotary
-embeddings, sinusoidal positions, the SwiGLU FFN, embeddings.  The reference's sharding
-annotations have no counterpart on one card and are dropped."""
+embeddings, sinusoidal positions, the SwiGLU FFN, embeddings.
+
+Under a mesh the SwiGLU weights are split by ``d_ff`` and the embedding
+table and ``lm_head`` by vocabulary over ``model``: the FFN's and the
+lookup's partial results are added over ``model`` and the logits gathered
+(see :mod:`repro_torch.parallel.context`)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.parallel import context as ctx
 
 
 def weight(t: torch.Tensor) -> nn.Parameter:
@@ -68,27 +74,41 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def swiglu(
     x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
 ) -> torch.Tensor:
-    """SwiGLU FFN: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
-    return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """SwiGLU FFN: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``, summed
+    over ``model`` where the weights are this rank's ``d_ff`` columns."""
+    h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
+    return ctx.matmul_psum(h, w_down, ctx.physical_axes("tp"))
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` for integer ``tokens`` of any shape.  Its
     gradient on a card sums repeated tokens' rows in a fixed order
     (``F.embedding``'s sorted backward; ``index_select``'s adds them with
-    atomics), so a training step repeats bit for bit."""
-    return torch.nn.functional.embedding(tokens, table)
+    atomics), so a training step repeats bit for bit.  Under a mesh
+    ``table`` is this rank's block of the vocabulary: tokens outside it get
+    zeros, and the rows are added over ``model`` (one nonzero term each,
+    so exactly)."""
+    tp = ctx.physical_axes("tp")
+    if ctx.axis_size("tp") == 1:
+        return torch.nn.functional.embedding(tokens, table)
+    rows = table.shape[0]
+    ids = tokens - ctx.axis_index(tp) * rows
+    mine = (ids >= 0) & (ids < rows)
+    out = torch.nn.functional.embedding(ids.clamp(0, rows - 1), table)
+    return ctx.psum(out.masked_fill(~mine[..., None], 0), tp)
 
 
 def unembed(
     x: torch.Tensor, table: torch.Tensor, *, transpose: bool, cap: float = 0.0
 ) -> torch.Tensor:
-    """Project to (padded) vocab logits, soft-capped when ``cap > 0``."""
+    """Project to (padded) vocab logits, soft-capped when ``cap > 0``.
+    Under a mesh ``table`` holds this rank's block of the vocabulary; each
+    block's logits are capped, then gathered over ``model`` in vocabulary
+    order (so an argmax keeps the first maximal index of the whole)."""
     logits = x @ (table.T if transpose else table)
     if cap > 0.0:
         logits = softcap(logits, cap)
-    return logits
-
+    return ctx.all_gather(logits, ctx.physical_axes("tp"), -1)
 
 
 def sinusoidal_positions(length: int, dim: int, *, device=None) -> torch.Tensor:

@@ -13,8 +13,11 @@ space block, its O(1) decode step and its conv / SSM cache.
 * Decode (:func:`mamba_decode`): one step of the recurrence against the
   cache, elementwise tensor code (the reference's step is float32 too).
   The cache is updated in place (the reference returns a new one).
-* The reference's sharding annotations have no counterpart on one card
-  and are dropped.
+* Under a mesh each rank holds a block of the ``d_inner`` channels (its
+  channels of ``in_proj``'s x and z halves, of the conv, ``dt_proj``,
+  ``A_log``, ``D`` and the caches; its rows of ``x_proj`` and
+  ``out_proj``), so K2 runs on the local channels; the ``x_proj`` and
+  ``out_proj`` partial sums are added over ``model``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan.ops import ssm_scan
 from repro_torch.models.layers import weight
+from repro_torch.parallel import context as ctx
 
 
 class Mamba(nn.Module):
@@ -115,7 +119,7 @@ def _ssm_inputs(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
     compute dtype, float32 after.  Returns ``(dt, a, b, c)``: dt (B, S,
     di), a = -exp(A_log) (di, N), b and c (B, S, N), all float32."""
     dtr, n = cfg.dt_rank_actual, cfg.ssm_state
-    x_dbl = x_conv @ p.x_proj  # (B, S, dtr + 2N)
+    x_dbl = ctx.matmul_psum(x_conv, p.x_proj, ctx.physical_axes("tp"))  # (B, S, dtr + 2N)
     dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
     dt = F.softplus(dt @ p.dt_proj + p.dt_bias.to(x_conv.dtype)).float()
     a = -torch.exp(p.A_log)
@@ -136,7 +140,11 @@ def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
     dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
     xf = x_conv.float()
     y = ssm_scan(dt, a, b, c, xf)  # (B, S, di) float32
-    return _gate(y, xf, p.D, z, x.dtype) @ p.out_proj
+    return _out_proj(_gate(y, xf, p.D, z, x.dtype), p)
+
+
+def _out_proj(y: torch.Tensor, p: Mamba) -> torch.Tensor:
+    return ctx.matmul_psum(y, p.out_proj, ctx.physical_axes("tp"))
 
 
 def mamba_decode(
@@ -155,7 +163,7 @@ def mamba_decode(
     dbx = (dt[:, 0] * xf[:, 0])[..., None] * b[:, 0, None, :]
     h = cache.ssm * da + dbx
     y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None]
-    out = _gate(y, xf, p.D, z, x.dtype) @ p.out_proj
+    out = _out_proj(_gate(y, xf, p.D, z, x.dtype), p)
     cache.conv.copy_(new_conv)
     cache.ssm.copy_(h)
     return out, cache

@@ -34,10 +34,21 @@ Leaves are inference-only parameters (``requires_grad=False``) until
 :func:`train_mode` makes the floating ones trainable; the compute cast is
 then differentiable, so gradients reach the float32 master leaves, and
 :func:`loss_fn` is the reference's training loss.
+
+Under a mesh (:mod:`repro_torch.parallel.context`) ``params`` and the
+decode cache are this rank's shards (``launch.mesh.shard_params``,
+:func:`init_cache`), while :func:`forward`, :func:`prefill` and
+:func:`decode_step` take and return whole batches: each rank runs its
+block of the rows (over :func:`~repro_torch.parallel.context.divisible_batch_axes`)
+through its heads, channels, vocabulary and experts, and the outputs'
+rows are gathered at the end.  The mesh runs without autograd: a mesh
+forward whose parameters need a gradient raises ``NotImplementedError``
+(training across ranks waits for ROADMAP §1 P14 (multi-card)).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import NamedTuple
 
@@ -59,6 +70,7 @@ from repro_torch.models.layers import (
     unembed,
     weight,
 )
+from repro_torch.parallel import context as ctx
 
 # Leaves kept in float32 regardless of the compute policy (besides the
 # norm scales): SSM dynamics (A_log and D are exp'd) and router logits
@@ -291,14 +303,14 @@ def _unembed(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return unembed(x, params.lm_head, transpose=False, cap=cfg.final_logit_softcap)
 
 
-def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str):
+def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str, *, decode: bool = False):
     """The residual FFN half of a layer: ``(x, aux)``, where ``aux`` is an
     MoE's balance loss and ``None`` for any other FFN."""
     if kind == "none":
         return x, None
     h = rms_norm(x, layer.norm2, cfg.norm_eps)
     if kind == "moe":
-        h, aux = moe_mod.moe_apply(cfg, layer.ffn, h)
+        h, aux = moe_mod.moe_apply(cfg, layer.ffn, h, decode=decode)
         return x + h, aux
     return x + swiglu(h, layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down), None
 
@@ -329,6 +341,23 @@ def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope:
     return x, aux
 
 
+@contextlib.contextmanager
+def _batch_rows(params: LM, n: int):
+    """Run the body on this rank's block of a batch of ``n`` rows (all of
+    them with no mesh), refusing a mesh forward that needs a gradient."""
+    ctx.refuse_grad(params.parameters())
+    with ctx.use_batch_rows(n):
+        yield
+
+
+def _local(batch: dict) -> dict:
+    return {k: ctx.local_rows(v) for k, v in batch.items()}
+
+
+def _all_rows(x: torch.Tensor) -> torch.Tensor:
+    return ctx.all_gather(x, ctx.batch_axes(), 0)
+
+
 def encode(cfg: ModelConfig, params: LM, frames: torch.Tensor, *, cast: bool = True) -> torch.Tensor:
     """An encoder-decoder's encoder over precomputed ``frames`` (B,
     S_enc, D): the frames in the compute dtype plus sinusoidal positions,
@@ -339,6 +368,11 @@ def encode(cfg: ModelConfig, params: LM, frames: torch.Tensor, *, cast: bool = T
     :func:`cast_for_compute` returned them."""
     if cast:
         params = cast_for_compute(cfg, params)
+    with _batch_rows(params, frames.shape[0]):
+        return _all_rows(_encode(cfg, params, ctx.local_rows(frames)))
+
+
+def _encode(cfg: ModelConfig, params: LM, frames: torch.Tensor) -> torch.Tensor:
     compute = torch_dtype(cfg.compute_dtype)
     frames = frames.to(compute)
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device).to(compute)
@@ -354,7 +388,7 @@ def _hidden(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, to
     enc_out = None
     x = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.is_encoder_decoder:
-        enc_out = encode(cfg, params, batch["enc_frames"], cast=False)
+        enc_out = _encode(cfg, params, batch["enc_frames"])
         x = x + params.dec_pos[None, : x.shape[1]].to(x.dtype)
     if cfg.frontend == "vit_patches":
         patches = batch["patch_embeds"].to(x.dtype) @ params.frontend.proj
@@ -367,15 +401,19 @@ def _hidden(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, to
 def forward_hidden(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to the final norm; returns ``(hidden,
     aux)`` (aux is the MoE balance loss, 0 without MoE)."""
-    return _hidden(cfg, cast_for_compute(cfg, params), batch)
+    params = cast_for_compute(cfg, params)
+    with _batch_rows(params, batch["tokens"].shape[0]):
+        x, aux = _hidden(cfg, params, _local(batch))
+        return _all_rows(x), aux
 
 
 def forward(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward; returns ``(logits (B, S, padded vocab),
     aux)``, S counting a ViT frontend's patches."""
     params = cast_for_compute(cfg, params)
-    x, aux = _hidden(cfg, params, batch)
-    return _unembed(cfg, params, x), aux
+    with _batch_rows(params, batch["tokens"].shape[0]):
+        x, aux = _hidden(cfg, params, _local(batch))
+        return _all_rows(_unembed(cfg, params, x)), aux
 
 
 def loss_fn(
@@ -406,8 +444,9 @@ def prefill(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
     ``(B, padded vocab)`` (serving never materializes the (B, S, vocab)
     logits)."""
     params = cast_for_compute(cfg, params)
-    x, _ = _hidden(cfg, params, batch)
-    return _unembed(cfg, params, x[:, -1:])[:, 0]
+    with _batch_rows(params, batch["tokens"].shape[0]):
+        x, _ = _hidden(cfg, params, _local(batch))
+        return _all_rows(_unembed(cfg, params, x[:, -1:])[:, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -436,8 +475,16 @@ def init_cache(
     window in ``dtype``, state in float32).  An encoder-decoder gets an
     :class:`EncDecCache`: self-attention caches sized by
     ``max_target_len`` and zeroed cross caches of ``seq_len`` encoder
-    frames."""
+    frames.  Under a mesh it is this rank's part (``launch.mesh.shard_cache``)
+    of the cache of a ``batch`` whose rows lie over the divisible batch
+    axes."""
     dev = resolve_device(device)
+    if ctx.current_mesh() is not None:
+        from repro_torch.launch.mesh import shard_cache
+
+        with ctx.use_mesh(None):
+            whole = init_cache(cfg, batch, seq_len, dtype, device=dev)
+        return shard_cache(cfg, whole)
     size = cfg.max_target_len if cfg.is_encoder_decoder else seq_len
     cache = []
     for i in range(cfg.n_layers):
@@ -469,9 +516,15 @@ def decode_step(
     casts once rather than walking every parameter on every step.  An
     encoder-decoder adds ``dec_pos[pos]``, uses no rotary embeddings and
     attends each layer's cross cache after its self-attention.  A ViT
-    frontend's decode sees tokens only, as the reference's does."""
+    frontend's decode sees tokens only, as the reference's does.  Under a
+    mesh ``cache`` is this rank's part and ``tokens`` the whole batch."""
     if cast:
         params = cast_for_compute(cfg, params)
+    with _batch_rows(params, tokens.shape[0]):
+        return _all_rows(_decode(cfg, params, cache, ctx.local_rows(tokens), pos)), cache
+
+
+def _decode(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor, pos: int) -> torch.Tensor:
     encdec = cfg.is_encoder_decoder
     x = _embed_tokens(cfg, params, tokens)
     if encdec:
@@ -493,6 +546,6 @@ def decode_step(
             h, _ = attn.mha_decode(cfg, layer.cross, h, cache.cross[i], pos, cross=True,
                                    use_rope=False)
             x = x + h
-        x, _ = _ffn(cfg, layer, x, ffn)
+        x, _ = _ffn(cfg, layer, x, ffn, decode=True)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return _unembed(cfg, params, x)[:, 0], cache
+    return _unembed(cfg, params, x)[:, 0]

@@ -1044,3 +1044,55 @@ def test_reduced_train_step_on_the_card_matches_cpu(cuda, name):
     assert abs(float(card_m["loss"]) - float(cpu_m["loss"])) <= 1e-4 * abs(float(cpu_m["loss"]))
     assert abs(float(card_m["grad_norm"]) - float(cpu_m["grad_norm"])) <= \
         1e-3 * float(cpu_m["grad_norm"])
+
+
+@pytest.mark.parametrize("impl", ["gather", "a2a"])
+def test_one_rank_nccl_mesh_forward_matches_no_mesh(cuda, tmp_path, impl):
+    """Reduced qwen3-moe-30b-a3b through the mesh code on one NCCL rank
+    (every collective spans one rank): the prefill logits and decode
+    steps equal the no-mesh path's on the card, bit for bit; the no-gather
+    decode path is taken (the replication share set to nothing)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import context as ctx
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), moe_impl=impl)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def run():
+        logits = [steps.make_prefill_step(cfg)(params_of(), {"tokens": tokens})]
+        cache = M.init_cache(cfg, 2, 16, torch.bfloat16, device="cuda")
+        step = steps.make_decode_step(cfg)
+        for t in range(4):
+            _, lg, cache = step(params_of(), cache, tokens[:, t : t + 1], t)
+            logits.append(lg)
+        return logits
+
+    def params_of():
+        return mesh_lib.shard_params(cfg, params)
+
+    want = run()
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = ctx.make_mesh((1, 1), ("data", "model"))
+        share = mesh_lib.SERVE_REPLICATION_SHARE
+        mesh_lib.SERVE_REPLICATION_SHARE = 0.0
+        try:
+            with mesh_lib.cell_context(mesh, cfg, ShapeConfig("p", 16, 2, "prefill")):
+                assert ctx.physical_axes("efsdp") == ("data",)
+                got = run()
+        finally:
+            mesh_lib.SERVE_REPLICATION_SHARE = share
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -50,6 +50,8 @@ def test_every_module_imports_without_jax_or_repro():
         "repro_torch.data.pipeline",
         "repro_torch.checkpoint.store",
         "repro_torch.runtime.fault_tolerance",
+        "repro_torch.parallel.context",
+        "repro_torch.launch.mesh",
     } <= set(modules)
     script = textwrap.dedent(
         f"""

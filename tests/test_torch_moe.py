@@ -151,11 +151,45 @@ def test_moe_apply_matches_reference_moe_apply():
         assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
 
 
-def test_moe_apply_raises_for_expert_parallel_requests():
-    _, pcfg = _configs(compute_dtype="float32", moe_impl="a2a")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a2a_without_a_mesh_matches_reference_moe_ffn_a2a(dtype):
+    """``moe_impl="a2a"`` with no mesh answers as the gather path does, as
+    the reference's ``moe_ffn_a2a`` with no mesh does (its single-device
+    branch), at a capacity that drops tokens."""
+    rcfg, pcfg = _configs(compute_dtype=dtype, moe_impl="a2a", capacity_factor=0.5)
+    p, _ = _case(rcfg, 1, dtype)
+    pp = PMOE.MoE(*(_tensor(p[n]) for n in PMOE.MoE.LEAVES))
+    x = np.random.default_rng(8).standard_normal((2, 24, rcfg.d_model)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.dtype(dtype))
+    want, want_aux = RMOE.moe_ffn_a2a(rcfg, p, xj)
+    with PMOE.drop_tally() as drops:
+        got, aux = PMOE.moe_apply(pcfg, pp, _tensor(xj))
+    assert sum(int(d) for d in drops) > 0  # the capacity binds
+    if dtype == "float32":
+        assert_rel_to_scale(got, want, rtol=F32_RTOL, what="a2a, no mesh")
+    else:
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=BF16_TOL, rtol=BF16_TOL, err_msg="a2a, no mesh")
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["gather", "a2a"])
+def test_mesh_forward_needing_grad_raises(impl):
+    """The mesh collectives carry no backward: under a mesh (here one rank,
+    where every collective is the identity) a forward whose weights need
+    a gradient raises, naming the roadmap item; without autograd it runs."""
+    from repro_torch.parallel import context as ctx
+
+    _, pcfg = _configs(compute_dtype="float32", moe_impl=impl)
     pp = PMOE.init_moe_params(pcfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PMOE.moe_apply(pcfg, pp, torch.zeros((1, 4, pcfg.d_model)))
+    pp.w_up.requires_grad_(True)
+    x = torch.zeros((1, 4, pcfg.d_model))
+    with ctx.use_mesh(ctx.Mesh(("data", "model"), (1, 1))):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 P14 \(multi-card\)"):
+            PMOE.moe_apply(pcfg, pp, x)
+        with torch.no_grad():
+            out, _ = PMOE.moe_apply(pcfg, pp, x)
+    assert out.shape == x.shape
 
 
 def test_init_matches_reference_leaves():
