@@ -3033,19 +3033,19 @@ def phase_lm_qwen3_moe() -> None:
     check(bool(torch.isfinite(logits).all()), "qwen3 prefill logits are not finite")
 
     # one more prefill with each layer's routing read: selected (token,
-    # expert) pairs that found no slot, and the most tokens one expert drew
-    dropped, loads, route = [], [], moe_mod.route
+    # expert) pairs that found no slot (the model's own tally), and the
+    # most tokens one expert drew
+    loads, route = [], moe_mod.route
 
-    def counting_route(*args):
+    def load_route(*args):
         r = route(*args)
-        chosen = r.top_p > 0
-        dropped.append(chosen.sum() - r.keep.sum())
-        loads.append(torch.bincount(r.top_i[chosen], minlength=cfg.n_experts).max())
+        loads.append(torch.bincount(r.top_i[r.top_p > 0], minlength=cfg.n_experts).max())
         return r
 
-    moe_mod.route = counting_route
+    moe_mod.route = load_route
     try:
-        step(params, batch)
+        with moe_mod.drop_tally() as dropped:
+            step(params, batch)
     finally:
         moe_mod.route = route
     check(len(dropped) == cfg.n_layers, f"{len(dropped)} routed layers of {cfg.n_layers}")

@@ -316,17 +316,33 @@ def psum(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
     return wide.to(x.dtype)
 
 
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``b`` 2-d, or both 3-d) in float32, unrounded.  On the
+    card a bf16 or f16 product stays a half-precision GEMM that writes
+    float32 (cuBLAS sums the products in float32 either way), so no
+    float32 copy of the weights is made; elsewhere the operands are
+    widened first (the CPU has no such GEMM)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        if b.dim() == 2:
+            out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return out.view(*a.shape[:-1], b.shape[-1])
+        if a.dim() == b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def matmul_psum(a: torch.Tensor, b: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
     """``a @ b`` whose contraction dim is split over ``axes`` (each rank
     holds its columns of ``a`` and rows of ``b``): the partial products
-    are formed and added in float32 and rounded once to ``a``'s dtype, as
-    one device's product rounds, so the result does not depend on how
-    many ranks split the sum.  Over one rank, plain ``a @ b``."""
+    are summed in float32 (:func:`product_f32`), added over the ranks in
+    float32 and rounded once to ``a``'s dtype, as one device's product
+    rounds, so the result does not depend on how many ranks split the
+    sum.  Over one rank, plain ``a @ b``."""
     mesh, axes, n = _span(a, axes)
     if n == 1:
         return a @ b
     refuse_grad((b,))
-    return psum(a.float() @ b.float(), axes).to(a.dtype)
+    return psum(product_f32(a, b), axes).to(a.dtype)
 
 
 def pmean(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:

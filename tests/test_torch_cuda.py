@@ -1096,3 +1096,29 @@ def test_one_rank_nccl_mesh_forward_matches_no_mesh(cuda, tmp_path, impl):
         dist.destroy_process_group()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_split_products_stay_half_precision_gemms_with_float32_output(cuda, dtype):
+    """``context.product_f32``, the partial product of every row-split
+    layer across ranks (``wo``, SwiGLU ``w_down``, mamba ``x_proj`` and
+    ``out_proj``, the no-gather MoE buffers): on the card a half-precision
+    GEMM writing float32 equals the product of the widened operands to
+    float32 rounding, and keeps the bits a rounding to ``dtype`` drops;
+    a column slice (``attention._project_out``) and a batched product too."""
+    from repro_torch.parallel import context as ctx
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(2, 16, 256, device=cuda, generator=g).to(dtype)
+    cases = [
+        (a, torch.randn(256, 96, device=cuda, generator=g).to(dtype)),
+        (a[..., 64:192], torch.randn(128, 96, device=cuda, generator=g).to(dtype)),
+        (torch.randn(8, 33, 64, device=cuda, generator=g).to(dtype),
+         torch.randn(8, 64, 48, device=cuda, generator=g).to(dtype)),
+    ]
+    for x, w in cases:
+        got = ctx.product_f32(x, w)
+        want = x.float() @ w.float()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert not torch.equal(got, got.to(dtype).float())
