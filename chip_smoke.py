@@ -137,7 +137,19 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    ``--mesh none`` logits (K1 48 times), the all-to-all path's prefill
    with its dropped assignments beside the gather path's, and generate
    (4 x 16 prompt + 16 tokens) through the no-gather decode path against
-   lm_qwen3_moe's tokens.
+   lm_qwen3_moe's tokens;
+18. lm_mesh_train — training across ranks at one rank, in a process group
+   of one and the (1, 1) mesh under the training cell's rules: two
+   float32 train steps of the five reduced archs of 17 through the mesh
+   code on the card against the same code on the CPU (loss within rel
+   1e-4, gradient norm within rel 1e-3); h2o-danube-1.8b at full size in
+   lm_danube_train's cell (4 x 2,048, accum 2, from the same seed and
+   batch), its two steps through the mesh train step held bit for bit
+   against lm_danube_train's first two (losses, gradient norms and every
+   parameter), K1's backward launches a step (48) and the step's wall
+   time beside the no-mesh step's; lm_falcon_mamba_train's first step
+   through the mesh code (K2's backward 8 times, the loss bit-equal);
+   ``compressed_psum_mean`` at one rank returning its input.
 
 Every profile whose kernel has a launch counter is held to it
 (``watched_complete``).  Then one line listing every kernel of the port
@@ -2797,8 +2809,9 @@ def phase_lm_danube_train() -> int:
     resumes from step 3's checkpoint and reproduces steps 4-6's losses and
     the final parameters bit for bit.  One steady step under the profiler
     gives K1 backward's share of the step's device time (its three kernels
-    a call), which must stay below 20%.  Returns K1's backward launches in
-    one step (the main path's run)."""
+    a call), which must stay below 20%.  Returns the first step's
+    launches, the first two steps' losses and gradient norms, the
+    parameters after them (on the host) and the median ms a step."""
     from repro_torch.checkpoint import store
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenStream
@@ -2825,11 +2838,16 @@ def phase_lm_danube_train() -> int:
     (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
     first = first_step_drop(opt, metrics)
     losses, walls = [float(metrics["loss"])], []
+    grad_norms = [float(metrics["grad_norm"])]
+    after_two = None
     for s in range(1, n_steps):
         t0 = time.perf_counter()
         _, opt, metrics = step(params, opt, batch, s)
         losses.append(float(metrics["loss"]))  # a synchronise
         walls.append(time.perf_counter() - t0)
+        grad_norms.append(float(metrics["grad_norm"]))
+        if s == 1:  # for lm_mesh_train, which repeats the first two steps
+            after_two = [p.detach().cpu() for p in params.parameters()]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     final = [p.detach().cpu() for p in params.parameters()]
     per_micro = cfg.n_layers
@@ -2915,7 +2933,8 @@ def phase_lm_danube_train() -> int:
     check(same_params, "resumed final parameters differ from the uninterrupted run's")
     check(k1_bwd_share < 0.20,
           f"K1's backward takes {k1_bwd_share:.1%} of the danube step's device time")
-    return counts["k1_bwd"]
+    return dict(counts=counts, losses=losses[:2], grad_norms=grad_norms[:2],
+                params_after_two=after_two, ms_per_step=ms_step)
 
 
 def phase_lm_falcon_mamba_train() -> int:
@@ -2924,8 +2943,8 @@ def phase_lm_falcon_mamba_train() -> int:
     all 7.27 B parameters (about 116 GB with the weights and gradients)
     exceeds the card's 80 GB: four steps at B=2 x 2,048, float32 master
     weights and moments, bf16 compute.  The loss is finite and falls, and
-    K2 launches 8 times forward and 8 times backward a step.  Returns K2's
-    backward launches in one step (the main path's run)."""
+    K2 launches 8 times forward and 8 times backward a step.  Returns the
+    first step's launches and loss and the median ms a step."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2991,7 +3010,7 @@ def phase_lm_falcon_mamba_train() -> int:
         peak_gb=peak_gb,
         step_profile=profile,
     )
-    return counts["k2_bwd"]
+    return dict(counts=counts, loss=losses[0], ms_per_step=ms_step)
 
 
 def phase_lm_qwen3_moe() -> None:
@@ -3253,6 +3272,158 @@ def phase_lm_mesh(qwen3: dict) -> None:
         store.unlink(missing_ok=True)
 
 
+def mesh_train_history(cfg, params, batch, n_steps: int, **step_args) -> tuple[list, dict]:
+    """``n_steps`` of ``make_train_step`` on ``params`` (trainable, this
+    rank's shards), the first under ``train_path_run``: ``([(loss,
+    grad_norm), ...], the first step's launches)``."""
+    from repro_torch.launch.steps import make_train_step, param_tree
+    from repro_torch.optim import adamw
+
+    step = make_train_step(cfg, **step_args)
+    opt = adamw.init(param_tree(params), cfg.moment_dtype)
+    (_, opt, m), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    hist = [(float(m["loss"]), float(m["grad_norm"]))]
+    for s in range(1, n_steps):
+        _, opt, m = step(params, opt, batch, s)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    return hist, counts
+
+
+def phase_lm_mesh_train(danube: dict, falcon: dict) -> None:
+    """Training across ranks on one card: the mesh train step (the hoisted
+    compute copy, float32 gradient buffers summed onto the shards, the
+    global norm over shards) at one rank, where every collective and its
+    backward return their input, so it must reproduce the no-mesh step.
+    The reduced archs on the card against the CPU; h2o-danube-1.8b at full
+    size against lm_danube_train's first two steps (``danube``), bit for
+    bit; falcon's 8-layer step against lm_falcon_mamba_train's first
+    (``falcon``); ``compressed_psum_mean`` at one rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context as ctx
+    from repro_torch.parallel.compression import compressed_grad_mean, compressed_psum_mean
+
+    t_start = time.perf_counter()
+    free_card()
+    store = ROOT / "build" / "chip_smoke_mesh_train_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_production_mesh()
+        check(mesh.shape == {"data": 1, "model": 1}, f"--mesh single at one rank is {mesh.shape}")
+        B, S = 2, 40
+        for name in MESH_ARCHS:
+            cfg = dataclasses.replace(get_config(name).reduced(), compute_dtype="float32")
+            rng = np.random.default_rng(2)
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
+                                     dtype=torch.int32)
+            batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+            lr = adamw.cosine_schedule(1e-3, 0, 10)
+            with mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", S, B, "train")):
+                cpu_params, _, _ = trainable(cfg, "cpu")
+                cpu_hist, _ = mesh_train_history(cfg, mesh_lib.shard_params(cfg, cpu_params),
+                                                 batch, 2, lr_schedule=lr)
+                card_params, _, _ = trainable(cfg, "cuda", draw_on="cpu")
+                card_batch = {k: v.cuda() for k, v in batch.items()}
+                card_hist, counts = mesh_train_history(
+                    cfg, mesh_lib.shard_params(cfg, card_params), card_batch, 2, lr_schedule=lr)
+            loss_gap = max(abs(c[0] - w[0]) / abs(w[0]) for c, w in zip(card_hist, cpu_hist))
+            norm_gap = max(abs(c[1] - w[1]) / w[1] for c, w in zip(card_hist, cpu_hist))
+            n_k1, (_, n_mamba) = k1_calls(cfg), layer_kinds(cfg)
+            emit("lm_mesh_train_reduced", arch=cfg.name, mesh=mesh.shape, batch=B, seq=S,
+                 card_history=card_hist, cpu_history=cpu_hist, loss_rel_gap_vs_cpu=loss_gap,
+                 grad_norm_rel_gap_vs_cpu=norm_gap, launches=counts)
+            check(counts == {"k1": n_k1, "k1_bwd": n_k1, "k2": n_mamba, "k2_bwd": n_mamba},
+                  f"{name}: a mesh train step launched {counts}")
+            check(loss_gap <= 1e-4,
+                  f"{name}: mesh train loss on the card differs from the CPU by rel {loss_gap}")
+            check(norm_gap <= 1e-3,
+                  f"{name}: mesh gradient norm on the card differs from the CPU by rel {norm_gap}")
+        reduced_s = time.perf_counter() - t_start
+
+        # h2o-danube-1.8b at full size in lm_danube_train's cell, from its
+        # seed and batch (the state rebuilt, not copied): the counted step,
+        # then a timed one
+        cfg = get_config("h2o-danube-1.8b")
+        B, S, accum = 4, 2048, 2
+        batch = TokenStream(cfg, S, B, seed=1, device="cuda").batch_at(0)
+        t0 = time.perf_counter()
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", S, B, "train")):
+            params, _, opt = trainable(cfg, "cuda")
+            local = mesh_lib.shard_params(cfg, params)
+            check(local is params, "one rank's shards of danube are not the whole model")
+            step = make_train_step(cfg, accum=accum,
+                                   lr_schedule=adamw.cosine_schedule(1e-3, 0, 6))
+            (_, opt, m), counts = train_path_run(lambda: step(local, opt, batch, 0))
+            hist = [(float(m["loss"]), float(m["grad_norm"]))]
+            t1 = time.perf_counter()
+            _, opt, m = step(local, opt, batch, 1)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+            step_s = time.perf_counter() - t1
+        want = list(zip(danube["losses"], danube["grad_norms"]))
+        same, worst = True, 0.0
+        for p, w in zip(local.parameters(), danube["params_after_two"]):
+            got = p.detach().cpu()
+            if not torch.equal(got, w):
+                same = False
+                worst = max(worst, float((got.float() - w.float()).abs().max()))
+        del params, local, opt, m
+        free_card()
+        emit("lm_mesh_train_danube", arch=cfg.name, mesh=mesh.shape, global_batch=B, seq=S,
+             accum=accum, history=hist, no_mesh_history=want, history_bit_equal=hist == want,
+             params_bit_equal=same, params_max_abs_diff=worst, launches_per_step=counts,
+             k1_backward_launches_per_step=counts["k1_bwd"],
+             mesh_ms_per_step=1e3 * step_s, no_mesh_ms_per_step=danube["ms_per_step"],
+             part_s=time.perf_counter() - t0)
+        check(counts == danube["counts"],
+              f"danube mesh step launched {counts}, not {danube['counts']} as without the mesh")
+        check(counts["k1_bwd"] == accum * cfg.n_layers, f"danube K1 backward {counts['k1_bwd']}")
+        check(hist == want, f"danube mesh history {hist} differs from the no-mesh {want}")
+        check(same, f"danube parameters after two mesh steps differ by up to {worst}")
+
+        # falcon's 8-layer train step through the mesh code
+        cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=8)
+        batch = TokenStream(cfg, 2048, 2, seed=2, device="cuda").batch_at(0)
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", 2048, 2, "train")):
+            params, _, _ = trainable(cfg, "cuda")
+            fal_hist, fal_counts = mesh_train_history(
+                cfg, mesh_lib.shard_params(cfg, params), batch, 1,
+                lr_schedule=adamw.cosine_schedule(1e-5, 0, 4))
+        del params
+        free_card()
+        emit("lm_mesh_train_falcon", arch=cfg.name, layers=cfg.n_layers, loss=fal_hist[0][0],
+             no_mesh_loss=falcon["loss"], loss_bit_equal=fal_hist[0][0] == falcon["loss"],
+             launches=fal_counts)
+        check(fal_counts == falcon["counts"] and fal_counts["k2_bwd"] == cfg.n_layers,
+              f"falcon mesh step launched {fal_counts}, not {falcon['counts']}")
+        check(fal_hist[0][0] == falcon["loss"],
+              f"falcon mesh loss {fal_hist[0][0]} differs from the no-mesh {falcon['loss']}")
+
+        # the int8 error-feedback mean at one rank
+        with ctx.use_mesh(mesh):
+            x = torch.randn(1000, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+            same_x = compressed_psum_mean(x, ("data",)) is x
+            mean, res = compressed_grad_mean({"w": x})
+        identity = same_x and bool(torch.equal(mean["w"], x)) and bool((res["w"] == 0).all())
+        emit("lm_mesh_train_compression", one_rank_identity=identity,
+             nvidia_smi=nvidia_smi("name,power.limit"),
+             reduced_s=reduced_s, phase_s=time.perf_counter() - t_start)
+        check(identity, "the compressed mean at one rank is not the identity")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3295,9 +3466,12 @@ def main() -> int:
         **flash,
     }
     scan_row["launches"] = phase_lm_falcon_mamba()  # one falcon-mamba-7b prefill call
-    flash_bwd_row["launches"] = phase_lm_danube_train()  # one danube train step
-    scan_bwd_row["launches"] = phase_lm_falcon_mamba_train()  # one falcon (8 layers) step
+    danube = phase_lm_danube_train()
+    flash_bwd_row["launches"] = danube["counts"]["k1_bwd"]  # one danube train step
+    falcon = phase_lm_falcon_mamba_train()
+    scan_bwd_row["launches"] = falcon["counts"]["k2_bwd"]  # one falcon (8 layers) step
     phase_lm_mesh(phase_lm_qwen3_moe())
+    phase_lm_mesh_train(danube, falcon)
     print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -24,11 +24,18 @@ shapes a rank must own whole:
   z halves each by channel, ``x_proj`` by rows); the embedding and
   ``lm_head`` by vocabulary;
 * MoE expert rows over ``expert`` and their ``d_model`` dim over
-  ``efsdp``; the router replicated.
+  ``efsdp``; the router replicated;
+* dense FSDP: the ``d_model`` dim of every dense matrix over ``fsdp``
+  (``data``), as the reference's specs put it (``model.fsdp_dim``); the
+  forward gathers them whole (``model.cast_for_compute``).  Training
+  keeps ``fsdp`` and ``efsdp`` on ``data`` (:func:`cell_context`), as the
+  reference's default rules do; serving replicates small models over
+  ``data``.
 
-Dense FSDP (``"fsdp"`` over ``data``) is left out: dense weights are
-replicated over the data axis, which computes the same function; it
-waits for ROADMAP §1 P14b with training across ranks.
+A training state (the parameter tree and AdamW's moments) is cut and
+gathered leaf by leaf in the same way (:func:`shard_state`,
+:func:`gather_state`), so a whole state moves to any mesh
+(``runtime.fault_tolerance.remesh``).
 ``advise_mesh_shape`` waits for ``rank_meshes`` (ROADMAP §1 P13).
 """
 
@@ -44,7 +51,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.attention import KVCache, head_layout
 from repro_torch.models.layers import weight
 from repro_torch.models.mamba import MambaCache
-from repro_torch.models.model import EncDecCache, _with_leaves
+from repro_torch.models.model import EncDecCache, _with_leaves, fsdp_dim
 from repro_torch.models.moe import moe_factor
 from repro_torch.parallel import context as ctx
 
@@ -119,12 +126,16 @@ def serve_params_replicated(cfg: ModelConfig, *, tp: int = 1) -> bool:
 @contextlib.contextmanager
 def cell_context(mesh: ctx.Mesh, cfg: ModelConfig, shape: ShapeConfig):
     """Activate the mesh + the logical-axis policy for one (arch, shape)
-    cell: decode-cache layout and the serve-time FSDP decision."""
+    cell: decode-cache layout and the serve-time FSDP decision; training
+    (``kind == "train"``) shards dense and expert weights over ``data``."""
     overrides = {}
     axis_names = mesh.axis_names
     sizes = mesh.shape
     batch_axes = tuple(a for a in ("pod", "data") if a in axis_names)
 
+    if shape.kind == "train":
+        overrides["fsdp"] = ("data",)
+        overrides["efsdp"] = ("data",)
     if shape.kind in ("decode", "prefill"):
         if not serve_params_replicated(cfg, tp=sizes.get("model", 1)):
             overrides["fsdp"] = ("data",)  # prefill: gathers amortized by T
@@ -194,9 +205,9 @@ def _ffn_plan(cfg, leaf: str, ndim: int, mesh: ctx.Mesh, rank: int) -> list:
     return [] if tp == 1 else [(0 if leaf == "w_down" else 1, _block(cfg.d_ff, tp, i))]
 
 
-def _param_plan(cfg, name: str, ndim: int, mesh: ctx.Mesh, rank: int) -> list:
-    """``[(dim, indices), ...]`` of the parameter ``name`` held by
-    ``rank``: the dims cut over more than one rank."""
+def _model_plan(cfg, name: str, ndim: int, mesh: ctx.Mesh, rank: int) -> list:
+    """The cuts of the parameter ``name`` over ``model`` (and the experts'
+    over ``efsdp``)."""
     parts = name.split(".")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
     if name in ("embed.table", "lm_head"):
@@ -211,53 +222,137 @@ def _param_plan(cfg, name: str, ndim: int, mesh: ctx.Mesh, rank: int) -> list:
     return []
 
 
+def _param_plan(cfg, name: str, ndim: int, mesh: ctx.Mesh, rank: int) -> list:
+    """``[(dim, indices), ...]`` of the parameter ``name`` held by
+    ``rank``: the dims cut over more than one rank, a dense matrix's
+    ``d_model`` dim over ``fsdp`` last."""
+    plan = _model_plan(cfg, name, ndim, mesh, rank)
+    dim = fsdp_dim(name, ndim)
+    nf, j = _span("fsdp", mesh, rank)
+    if dim is not None and nf > 1:
+        plan = plan + [(dim, _block(cfg.d_model, nf, j))]
+    return plan
+
+
 def _cut(t: torch.Tensor, plan: list) -> torch.Tensor:
     for dim, idx in plan:
         t = t.index_select(dim, idx.to(t.device))
     return t
 
 
+def _cut_leaf(cfg, name: str, t: torch.Tensor) -> torch.Tensor | None:
+    """This rank's shard of the whole leaf ``t``, or ``None`` where the
+    rank holds it whole."""
+    mesh = ctx.current_mesh()
+    plan = _param_plan(cfg, name, t.ndim, mesh, mesh.rank)
+    return _cut(t.detach(), plan) if plan else None
+
+
+def _gather_leaf(cfg, name: str, t: torch.Tensor) -> torch.Tensor | None:
+    """The whole leaf from every rank's shard ``t`` (one all-gather over
+    the whole mesh), or ``None`` where no rank cuts it."""
+    mesh = ctx.current_mesh()
+    plans = [_param_plan(cfg, name, t.ndim, mesh, q) for q in range(mesh.size)]
+    if not plans[mesh.rank]:
+        return None
+    parts = ctx.all_gather(t.detach()[None], mesh.axis_names, 0, adjoint="slice")
+    full = list(t.shape)
+    for plan in plans:
+        for dim, idx in plan:
+            full[dim] = max(full[dim], int(idx.max()) + 1)
+    out = t.new_zeros(full)
+    for q, plan in enumerate(plans):
+        index = [torch.arange(n, device=t.device) for n in t.shape]
+        for dim, idx in plan:
+            index[dim] = idx.to(t.device)
+        out[tuple(ix.view([-1 if d == k else 1 for k in range(t.ndim)])
+                  for d, ix in enumerate(index))] = parts[q]
+    return out
+
+
+def _map_leaves(lm, fn):
+    """``lm`` with each leaf ``fn(name, leaf)`` returns (not ``None``) put
+    in its place as a new inference-only leaf, the rest shared."""
+    leaves = {}
+    for name, p in lm.named_parameters():
+        t = fn(name, p)
+        if t is not None:
+            leaves[name] = weight(t)
+    return _with_leaves(lm, leaves) if leaves else lm
+
+
 def shard_params(cfg: ModelConfig, lm):
     """This rank's shards of a whole :class:`~repro_torch.models.model.LM`
     under the active mesh and rules: a shallow copy whose cut leaves are
     new, the rest shared (everything shared with no mesh or one rank)."""
-    mesh = ctx.current_mesh()
-    if mesh is None:
+    if ctx.current_mesh() is None:
         return lm
-    leaves = {}
-    for name, p in lm.named_parameters():
-        plan = _param_plan(cfg, name, p.ndim, mesh, mesh.rank)
-        if plan:
-            leaves[name] = weight(_cut(p.detach(), plan))
-    return _with_leaves(lm, leaves) if leaves else lm
+    return _map_leaves(lm, lambda name, p: _cut_leaf(cfg, name, p))
 
 
 def gather_params(cfg: ModelConfig, lm):
     """The inverse of :func:`shard_params`: every rank gets the whole
     :class:`~repro_torch.models.model.LM` back (one all-gather per cut
     leaf over the whole mesh)."""
-    mesh = ctx.current_mesh()
-    if mesh is None:
+    if ctx.current_mesh() is None:
         return lm
-    leaves = {}
-    for name, p in lm.named_parameters():
-        plans = [_param_plan(cfg, name, p.ndim, mesh, q) for q in range(mesh.size)]
-        if not plans[mesh.rank]:
+    return _map_leaves(lm, lambda name, p: _gather_leaf(cfg, name, p))
+
+
+def _map_state(state, fn, name: str | None = None):
+    """``state`` with ``fn(name, tensor)`` applied to the tensors of every
+    dict in it, a dict being a parameter tree whose leaves are named by
+    their joined keys (``steps.param_tree``, AdamW's ``m`` and ``v``); a
+    ``None`` from ``fn`` keeps the leaf, and leaves outside a dict (the
+    step count) are kept."""
+    if isinstance(state, dict):
+        return {k: _map_state(v, fn, k if name is None else f"{name}.{k}")
+                for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_map_state(v, fn, name) for v in state))
+    if isinstance(state, (list, tuple)):
+        return type(state)(_map_state(v, fn, name) for v in state)
+    if name is None or not isinstance(state, torch.Tensor):
+        return state
+    out = fn(name, state)
+    return state if out is None else out
+
+
+def shard_state(cfg: ModelConfig, state):
+    """This rank's shards of a whole training state (a tree of parameter
+    trees and moments, e.g. ``(param_tree, AdamWState)``) under the active
+    mesh and rules, each leaf cut as :func:`shard_params` cuts it; the
+    state itself with no mesh."""
+    if ctx.current_mesh() is None:
+        return state
+    return _map_state(state, lambda name, t: _cut_leaf(cfg, name, t))
+
+
+def gather_state(cfg: ModelConfig, state):
+    """The inverse of :func:`shard_state`: the whole state on every rank
+    (every rank takes part)."""
+    if ctx.current_mesh() is None:
+        return state
+    return _map_state(state, lambda name, t: _gather_leaf(cfg, name, t))
+
+
+def counted_leaves(cfg: ModelConfig, params) -> dict[str, bool]:
+    """For each parameter name, whether this rank is the first of the
+    ranks holding the same indices of it (the only one that counts it in
+    a sum over the mesh, ``adamw.global_norm``)."""
+    mesh = ctx.current_mesh()
+    out = {}
+    for name, p in params.named_parameters():
+        if mesh is None or mesh.size == 1:
+            out[name] = True
             continue
-        parts = ctx.all_gather(p.detach()[None], mesh.axis_names, 0)
-        full = list(p.shape)
-        for plan in plans:
-            for dim, idx in plan:
-                full[dim] = max(full[dim], int(idx.max()) + 1)
-        out = p.new_zeros(full)
-        for q, plan in enumerate(plans):
-            index = [torch.arange(n, device=p.device) for n in p.shape]
-            for dim, idx in plan:
-                index[dim] = idx.to(p.device)
-            out[tuple(ix.view([-1 if d == k else 1 for k in range(p.ndim)])
-                      for d, ix in enumerate(index))] = parts[q]
-        leaves[name] = weight(out)
-    return _with_leaves(lm, leaves) if leaves else lm
+
+        def key(q):
+            return [(dim, idx.tolist()) for dim, idx in _param_plan(cfg, name, p.ndim, mesh, q)]
+
+        mine = key(mesh.rank)
+        out[name] = all(key(q) != mine for q in range(mesh.rank))
+    return out
 
 
 def shard_cache(cfg: ModelConfig, cache):

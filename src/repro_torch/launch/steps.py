@@ -9,9 +9,19 @@ AdamW step.  ``params`` is a trainable :class:`~repro_torch.models.model.LM`
 (``model.train_mode``) and ``opt_state`` an ``adamw.AdamWState`` over
 :func:`param_tree`; both are updated in place and returned.  Its attention
 and mamba layers run K1 and K2 forward and backward as kernels on a card.
-The reference's mesh-only branches (the gradient's sharding pin and the
-hoisted parameter gather) wait for training across ranks, ROADMAP §1
-P14b; under a mesh the forward refuses a gradient.
+
+Under an active mesh (``launch.mesh.cell_context`` of a ``"train"``
+shape) ``params`` and the moments are this rank's shards and ``batch``
+the whole global batch, whose rows the model cuts.  The step takes the
+reference's two mesh branches: the compute-dtype copy of the parameters,
+``fsdp`` shards gathered whole, is made once a step outside the
+micro-batch loop (its note c3); each micro-batch's gradient with respect
+to that copy is added into float32 buffers, and once a step each buffer
+is summed over the batch axes and cut to the shard: over the ``fsdp``
+axes as the gather's adjoint (a reduce-scatter, its note c1), over the
+others as the data-parallel sum (the loss's mean over the batch axes has
+scaled each rank's part already).  The global norm counts each leaf once
+(``adamw.global_norm``'s ``counted``) and AdamW updates the shards.
 
 ``make_prefill_step(cfg)`` returns ``(params, batch) -> last-position
 logits``; ``make_decode_step(cfg)`` returns ``(params, cache, tokens,
@@ -29,6 +39,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel import context as ctx
@@ -38,8 +49,13 @@ def param_tree(params: M.LM) -> dict:
     """The LM's leaves as a nested dict keyed by the parts of their names
     (``{"layers": {"0": {"mixer": {"wq": ...}}}, "embed": {"table": ...}}``),
     the tree AdamW runs over: its leaves are the parameters themselves."""
+    return _tree_of(dict(params.named_parameters()))
+
+
+def _tree_of(named: dict) -> dict:
+    """A mapping of dotted parameter names as a nested dict."""
     tree: dict = {}
-    for name, p in params.named_parameters():
+    for name, p in named.items():
         *parents, leaf = name.split(".")
         node = tree
         for k in parents:
@@ -60,6 +76,65 @@ def auto_accum(cfg: ModelConfig, global_batch: int, *, target_micro: int = 2) ->
     return max(1, accum)
 
 
+def _micro_batches(batch: dict, accum: int) -> list[dict]:
+    if accum == 1:
+        return [batch]
+    return [{k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i] for k, v in batch.items()}
+            for i in range(accum)]
+
+
+def _grads(cfg: ModelConfig, params: M.LM, micros: list[dict]):
+    """``(gradient per parameter name, loss sum, last parts)`` with no
+    mesh: each micro-batch's ``backward`` adds its float32 gradient into
+    the master leaves' ``.grad``."""
+    l_sum = None
+    for micro in micros:
+        l, parts = M.loss_fn(cfg, params, micro)
+        l.backward()
+        l_sum = l.detach() if l_sum is None else l_sum + l.detach()
+    grads = {name: torch.zeros_like(p) if p.grad is None else p.grad
+             for name, p in params.named_parameters()}
+    return grads, l_sum, parts
+
+
+def _mesh_grads(cfg: ModelConfig, params: M.LM, micros: list[dict]):
+    """:func:`_grads` under a mesh: the compute copy gathered once (c3),
+    each micro-batch's gradient with respect to it added into float32
+    buffers (``a + b.astype(float32)``, as the reference accumulates),
+    then each buffer summed over the batch axes onto this rank's shard
+    (c1).  The micro-batch's rows must split over every batch axis
+    (``model.loss_fn`` raises where they do not)."""
+    with torch.no_grad():
+        compute = M.cast_for_compute(cfg, params)
+    named = [(n, t) for n, t in compute.named_parameters() if t.dtype.is_floating_point]
+    for _, t in named:
+        t.requires_grad_(True)
+    acc: list[torch.Tensor | None] = [None] * len(named)
+    l_sum = None
+    for micro in micros:
+        l, parts = M.loss_fn(cfg, compute, micro, cast=False)
+        gs = torch.autograd.grad(l, [t for _, t in named], allow_unused=True)
+        for i, g in enumerate(gs):
+            if g is not None:
+                acc[i] = g.float() if acc[i] is None else acc[i].add_(g.float())
+        l_sum = l.detach() if l_sum is None else l_sum + l.detach()
+    masters = dict(params.named_parameters())
+    batch_axes = ctx.physical_axes("batch")
+    grads = {}
+    with torch.no_grad():
+        for (name, _), g in zip(named, acc):
+            p = masters[name]
+            if g is None:
+                grads[name] = torch.zeros_like(p)
+                continue
+            cut = M.batch_cut_axes(name, p.ndim)
+            if cut and g.shape != p.shape:  # the hoisted gather's adjoint (c1)
+                g = ctx.psum_scatter(g, cut, M.fsdp_dim(name, p.ndim))
+            g = ctx.psum(g.contiguous(), [a for a in batch_axes if a not in cut])
+            grads[name] = g.to(p.dtype)
+    return grads, l_sum, parts
+
+
 def make_train_step(
     cfg: ModelConfig,
     *,
@@ -74,20 +149,11 @@ def make_train_step(
         leaves = [p for p in params.parameters() if p.requires_grad]
         for p in leaves:
             p.grad = None
-        micros = [batch] if accum == 1 else [
-            {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i] for k, v in batch.items()}
-            for i in range(accum)
-        ]
-        l_sum = None
-        for micro in micros:
-            # backward adds each micro-batch's float32 gradient into .grad
-            l, parts = M.loss_fn(cfg, params, micro)
-            l.backward()
-            l_sum = l.detach() if l_sum is None else l_sum + l.detach()
+        micros = _micro_batches(batch, accum)
+        mesh = ctx.current_mesh()
+        by_name, l_sum, parts = (_grads if mesh is None else _mesh_grads)(cfg, params, micros)
         tree = param_tree(params)
-        grads = adamw._map(
-            lambda _, p: torch.zeros_like(p) if p.grad is None else p.grad, tree
-        )
+        grads = _tree_of(by_name)
         if accum == 1:
             loss = l_sum
             parts = {k: v.detach() for k, v in parts.items()}
@@ -95,7 +161,8 @@ def make_train_step(
             with torch.no_grad():
                 adamw._map(lambda _, g: g.div_(accum), grads)
             loss, parts = l_sum / accum, {}
-        gnorm = adamw.clip_by_global_norm_(grads, max_grad_norm)
+        counted = None if mesh is None else _tree_of(mesh_lib.counted_leaves(cfg, params))
+        gnorm = adamw.clip_by_global_norm_(grads, max_grad_norm, counted=counted)
         lr = lr_schedule(torch.as_tensor(step))
         opt_state = adamw.update_(grads, opt_state, tree, lr=lr)
         for p in leaves:

@@ -19,7 +19,10 @@ whose core is K1 (``mha_flash``), and the cached decode path.
   projection's partial sums are added over ``model``.  The reference's
   decode cache is sequence-sharded instead (``cache_seq``); a head-sharded
   cache computes the same function (the sequence-sharded one waits for
-  ROADMAP §1 P14c).
+  ROADMAP §1 P14c).  In training, where ranks hold the same KV heads
+  (fewer than the ranks) or the same query head (its ranks splitting its
+  rows of ``wo``), each uses them in part, so their gradients are added
+  over exactly those ranks (:func:`held_projections`).
 """
 
 from __future__ import annotations
@@ -108,6 +111,22 @@ def head_layout(cfg: ModelConfig, tp: int, index: int) -> HeadLayout:
     return HeadLayout(q0, heads, kv0, (q0 + heads - 1) // g - kv0 + 1, wo0, wo_rows)
 
 
+def held_projections(cfg: ModelConfig, p: Attention):
+    """``(wq, wk, wv)`` as this rank computes with them: under autograd
+    on a mesh, ``wk``/``wv`` pass through ``context.fan_out`` keyed by
+    the first KV head a rank holds and ``wq`` keyed by its first query
+    head, so a leaf's gradient is summed over the model ranks holding the
+    same heads and no others."""
+    tp = ctx.axis_size("tp")
+    if tp == 1 or not torch.is_grad_enabled():
+        return p.wq, p.wk, p.wv
+    axes = ctx.physical_axes("tp")
+    lays = [head_layout(cfg, tp, i) for i in range(tp)]
+    q_keys, kv_keys = [lay.q0 for lay in lays], [lay.kv0 for lay in lays]
+    return (ctx.fan_out(p.wq, axes, q_keys), ctx.fan_out(p.wk, axes, kv_keys),
+            ctx.fan_out(p.wv, axes, kv_keys))
+
+
 def _project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``out`` (..., heads * dh) through this rank's rows of ``wo``, summed
     over ``model``: where a head's ranks split its rows, each takes its
@@ -135,10 +154,12 @@ def mha(
     B, S, _ = x.shape
     dh = cfg.head_dim
     h, kv = p.wq.shape[1] // dh, p.wk.shape[1] // dh
-    q = (x @ p.wq).reshape(B, S, h, dh)
+    wq, wk, wv = held_projections(cfg, p)
+    x = ctx.fan_out(x, ctx.physical_axes("tp"))
+    q = (x @ wq).reshape(B, S, h, dh)
     if kv_override is None:
-        k = (x @ p.wk).reshape(B, S, kv, dh)
-        v = (x @ p.wv).reshape(B, S, kv, dh)
+        k = (x @ wk).reshape(B, S, kv, dh)
+        v = (x @ wv).reshape(B, S, kv, dh)
         if use_rope:
             q = rope(q, positions[None], cfg.rope_theta)
             k = rope(k, positions[None], cfg.rope_theta)
@@ -160,8 +181,10 @@ def cross_kv(
     B, S, _ = enc_out.shape
     dh = cfg.head_dim
     kv = p.wk.shape[1] // dh
-    k = (enc_out @ p.wk).reshape(B, S, kv, dh)
-    v = (enc_out @ p.wv).reshape(B, S, kv, dh)
+    _, wk, wv = held_projections(cfg, p)
+    enc_out = ctx.fan_out(enc_out, ctx.physical_axes("tp"))
+    k = (enc_out @ wk).reshape(B, S, kv, dh)
+    v = (enc_out @ wv).reshape(B, S, kv, dh)
     return k, v
 
 

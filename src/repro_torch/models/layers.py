@@ -4,7 +4,9 @@ embeddings, sinusoidal positions, the SwiGLU FFN, embeddings.
 Under a mesh the SwiGLU weights are split by ``d_ff`` and the embedding
 table and ``lm_head`` by vocabulary over ``model``: the FFN's and the
 lookup's partial results are added over ``model`` and the logits gathered
-(see :mod:`repro_torch.parallel.context`)."""
+(see :mod:`repro_torch.parallel.context`).  The replicated activations
+entering the split products pass through ``context.fan_out``, so their
+gradients add the ranks' parts."""
 
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ def swiglu(
 ) -> torch.Tensor:
     """SwiGLU FFN: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``, summed
     over ``model`` where the weights are this rank's ``d_ff`` columns."""
+    x = ctx.fan_out(x, ctx.physical_axes("tp"))
     h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
     return ctx.matmul_psum(h, w_down, ctx.physical_axes("tp"))
 
@@ -104,11 +107,13 @@ def unembed(
     """Project to (padded) vocab logits, soft-capped when ``cap > 0``.
     Under a mesh ``table`` holds this rank's block of the vocabulary; each
     block's logits are capped, then gathered over ``model`` in vocabulary
-    order (so an argmax keeps the first maximal index of the whole)."""
-    logits = x @ (table.T if transpose else table)
+    order (so an argmax keeps the first maximal index of the whole); every
+    rank then computes the same thing on them."""
+    tp = ctx.physical_axes("tp")
+    logits = ctx.fan_out(x, tp) @ (table.T if transpose else table)
     if cap > 0.0:
         logits = softcap(logits, cap)
-    return ctx.all_gather(logits, ctx.physical_axes("tp"), -1)
+    return ctx.all_gather(logits, tp, -1, adjoint="slice")
 
 
 def sinusoidal_positions(length: int, dim: int, *, device=None) -> torch.Tensor:

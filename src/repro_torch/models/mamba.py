@@ -17,7 +17,10 @@ space block, its O(1) decode step and its conv / SSM cache.
   channels of ``in_proj``'s x and z halves, of the conv, ``dt_proj``,
   ``A_log``, ``D`` and the caches; its rows of ``x_proj`` and
   ``out_proj``), so K2 runs on the local channels; the ``x_proj`` and
-  ``out_proj`` partial sums are added over ``model``.
+  ``out_proj`` partial sums are added over ``model``.  The mixer's input
+  and the summed ``x_proj`` output (dt, B and C, which each rank uses on
+  its own channels) pass through ``context.fan_out``, so their gradients
+  add the ranks' parts.
 """
 
 from __future__ import annotations
@@ -119,7 +122,8 @@ def _ssm_inputs(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
     compute dtype, float32 after.  Returns ``(dt, a, b, c)``: dt (B, S,
     di), a = -exp(A_log) (di, N), b and c (B, S, N), all float32."""
     dtr, n = cfg.dt_rank_actual, cfg.ssm_state
-    x_dbl = ctx.matmul_psum(x_conv, p.x_proj, ctx.physical_axes("tp"))  # (B, S, dtr + 2N)
+    tp = ctx.physical_axes("tp")
+    x_dbl = ctx.fan_out(ctx.matmul_psum(x_conv, p.x_proj, tp), tp)  # (B, S, dtr + 2N)
     dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
     dt = F.softplus(dt @ p.dt_proj + p.dt_bias.to(x_conv.dtype)).float()
     a = -torch.exp(p.A_log)
@@ -135,6 +139,7 @@ def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
     """The full-sequence (prefill) mixer: ``x`` (B, S, D) -> (B, S, D) in
     x's dtype.  Its scan is K2 on a card (one launch) and the plain
     version on the CPU; there is no fallback between them."""
+    x = ctx.fan_out(x, ctx.physical_axes("tp"))
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, S, di) each
     x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, None))
     dt, a, b, c = _ssm_inputs(cfg, p, x_conv)

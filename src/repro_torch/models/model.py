@@ -41,9 +41,14 @@ decode cache are this rank's shards (``launch.mesh.shard_params``,
 :func:`decode_step` take and return whole batches: each rank runs its
 block of the rows (over :func:`~repro_torch.parallel.context.divisible_batch_axes`)
 through its heads, channels, vocabulary and experts, and the outputs'
-rows are gathered at the end.  The mesh runs without autograd: a mesh
-forward whose parameters need a gradient raises ``NotImplementedError``
-(training across ranks waits for ROADMAP §1 P14 (multi-card)).
+rows are gathered at the end.  Dense matrices may also be cut along
+``d_model`` over ``fsdp`` (:func:`fsdp_dim`): :func:`cast_for_compute`
+gathers them whole.  A mesh forward is differentiable: under autograd
+the gathers' backwards sum the gradient over the ranks (each holds other
+rows), every other leaf passes through ``context.fan_out`` over the batch
+axes that do not cut it, and :func:`loss_fn` averages its terms over the
+batch axes, so each rank's ``backward`` leaves the gradient of the whole
+batch's loss on its shards.
 """
 
 from __future__ import annotations
@@ -180,6 +185,50 @@ class LM(nn.Module):
         self.dec_pos = None if dec_pos is None else weight(dec_pos)
 
 
+# The dim of each dense matrix that the reference's specs put on "fsdp"
+# (its d_model dim): ``attention.py:53-56``, ``mamba.py:54, 62``,
+# ``model.py:91, 214, 222`` of ``repro.models``.
+_FSDP_DIMS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "in_proj": 0, "out_proj": 1, "w_gate": 0,
+              "w_up": 0, "w_down": 1, "table": 1, "lm_head": 0}
+
+
+def fsdp_dim(name: str, ndim: int) -> int | None:
+    """The ``d_model`` dim of the parameter ``name`` that lies over
+    ``fsdp``, or ``None`` (norms, SSM leaves, routers, positions; MoE
+    experts, 3-d, lie over ``efsdp`` instead)."""
+    return _FSDP_DIMS.get(name.rsplit(".", 1)[-1]) if ndim == 2 else None
+
+
+def batch_cut_axes(name: str, ndim: int) -> tuple[str, ...]:
+    """The batch axes of the active mesh that cut the parameter ``name``
+    (``fsdp`` for a dense matrix, ``efsdp`` for MoE experts): a forward
+    gathers them, and the gather's backward sums the gradient over them."""
+    if ctx.current_mesh() is None:
+        return ()
+    if ndim == 3 and name.rsplit(".", 1)[-1] in moe_mod.MoE.LEAVES:
+        axes = ctx.physical_axes("efsdp")
+    elif fsdp_dim(name, ndim) is not None:
+        axes = ctx.physical_axes("fsdp")
+    else:
+        return ()
+    return axes if ctx.current_mesh().axes_size(axes) > 1 else ()
+
+
+def _whole_over_batch(cfg: ModelConfig, name: str, t: torch.Tensor, train: bool) -> torch.Tensor:
+    """Under a mesh, the leaf ``t`` gathered along its ``fsdp`` dim
+    (unless it is whole already) and, in training, passed through
+    ``context.fan_out`` over the batch axes that do not cut it (each rank
+    holds other rows); ``t`` itself without a mesh."""
+    if ctx.current_mesh() is None:
+        return t
+    dim, cut = fsdp_dim(name, t.ndim), batch_cut_axes(name, t.ndim)
+    if dim is not None and cut and t.shape[dim] != cfg.d_model:
+        t = ctx.all_gather(t, cut, dim, adjoint="sum")
+    if train:
+        t = ctx.fan_out(t, [a for a in ctx.physical_axes("batch") if a not in cut])
+    return t
+
+
 def _keeps_f32(name: str) -> bool:
     leaf = name.rsplit(".", 1)[-1]
     return "norm" in leaf or leaf in _KEEP_F32_KEYS
@@ -187,22 +236,27 @@ def _keeps_f32(name: str) -> bool:
 
 def cast_for_compute(cfg: ModelConfig, params: LM) -> LM:
     """The parameters as the step computes with them: every floating leaf
-    but the norm scales and ``_KEEP_F32_KEYS`` in ``compute_dtype``.
-    Returns ``params`` itself when nothing needs a cast; otherwise a new
-    :class:`LM` that shares the leaves already in the right dtype.
+    but the norm scales and ``_KEEP_F32_KEYS`` in ``compute_dtype`` and,
+    under a mesh, the ``fsdp`` shards gathered whole along ``d_model``.
+    Returns ``params`` itself when nothing changes; otherwise a new
+    :class:`LM` that shares the leaves already as they should be.
 
     Inference (autograd off, or no leaf requiring a gradient) casts
     detached copies into new inference-only leaves, as serving always
     has.  Training (autograd on and a trainable leaf, :func:`train_mode`)
-    keeps the casts in the autograd graph instead, so the gradients reach
-    the master leaves in their own dtype."""
+    keeps the casts and gathers in the autograd graph instead, so the
+    gradients reach the master leaves in their own dtype, summed over the
+    batch axes under a mesh (see :func:`_whole_over_batch`)."""
     compute = torch_dtype(cfg.compute_dtype)
     train = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
-    leaves = {
-        name: p.to(compute) if train else weight(p.detach().to(compute))
-        for name, p in params.named_parameters()
-        if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute)
-    }
+    leaves = {}
+    for name, p in params.named_parameters():
+        t = p
+        if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute):
+            t = p.to(compute) if train else p.detach().to(compute)
+        t = _whole_over_batch(cfg, name, t, train)
+        if t is not p:
+            leaves[name] = t if train else weight(t.detach())
     return _with_leaves(params, leaves) if leaves else params
 
 
@@ -344,10 +398,16 @@ def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope:
 @contextlib.contextmanager
 def _batch_rows(params: LM, n: int):
     """Run the body on this rank's block of a batch of ``n`` rows (all of
-    them with no mesh), refusing a mesh forward that needs a gradient."""
-    ctx.refuse_grad(params.parameters())
-    with ctx.use_batch_rows(n):
-        yield
+    them with no mesh); yields the axes the rows lie over.  A mesh forward
+    that needs a gradient must split its rows over every batch axis (the
+    gradients of leaves replicated over an axis are summed over it)."""
+    with ctx.use_batch_rows(n) as axes:
+        if (ctx.current_mesh() is not None and torch.is_grad_enabled()
+                and set(axes) != set(ctx.physical_axes("batch"))
+                and any(p.requires_grad for p in params.parameters())):
+            raise ValueError(f"a mesh forward under autograd needs its {n} rows split over "
+                             f"every batch axis {ctx.physical_axes('batch')}, not {axes}")
+        yield axes
 
 
 def _local(batch: dict) -> dict:
@@ -355,7 +415,9 @@ def _local(batch: dict) -> dict:
 
 
 def _all_rows(x: torch.Tensor) -> torch.Tensor:
-    return ctx.all_gather(x, ctx.batch_axes(), 0)
+    """The rows of every rank (each rank then computes the same thing on
+    them)."""
+    return ctx.all_gather(x, ctx.batch_axes(), 0, adjoint="slice")
 
 
 def encode(cfg: ModelConfig, params: LM, frames: torch.Tensor, *, cast: bool = True) -> torch.Tensor:
@@ -417,16 +479,27 @@ def forward(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, to
 
 
 def loss_fn(
-    cfg: ModelConfig, params: LM, batch: dict, *, z_loss: float = 1e-4, aux_weight: float = 1e-2
+    cfg: ModelConfig, params: LM, batch: dict, *, z_loss: float = 1e-4, aux_weight: float = 1e-2,
+    cast: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """The reference's training loss: mean next-token NLL over
     ``batch["labels"]`` with the padded vocabulary masked out of the
     float32 softmax, plus ``z_loss * mean(lse**2)`` and ``aux_weight *
     aux`` (the MoE balance loss).  Returns ``(total, {"nll", "aux",
     "lse"})``, ``lse`` the mean log-sum-exp.  With a ViT-patch frontend
-    the loss covers the text positions only."""
-    logits, aux = forward(cfg, params, batch)
-    labels = batch["labels"]
+    the loss covers the text positions only.  ``cast=False`` takes
+    ``params`` as :func:`cast_for_compute` returned them.
+
+    Under a mesh each rank computes the terms on its rows (every rank the
+    same number of tokens, no logits gathered across the batch axes) and
+    averages them over the batch axes; ``aux`` arrives averaged already
+    (``moe.moe_ffn``)."""
+    if cast:
+        params = cast_for_compute(cfg, params)
+    with _batch_rows(params, batch["tokens"].shape[0]) as axes:
+        x, aux = _hidden(cfg, params, _local(batch))
+        logits = _unembed(cfg, params, x)
+        labels = ctx.local_rows(batch["labels"])
     if cfg.frontend == "vit_patches":
         logits = logits[:, -labels.shape[1]:]
     logits = logits.float()
@@ -435,8 +508,8 @@ def loss_fn(
     lse = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (lse - true_logit).mean()
-    total = nll + z_loss * (lse**2).mean() + aux_weight * aux
-    return total, {"nll": nll, "aux": aux, "lse": lse.mean()}
+    total = ctx.pmean(nll + z_loss * (lse**2).mean(), axes) + aux_weight * aux
+    return total, {"nll": ctx.pmean(nll, axes), "aux": aux, "lse": ctx.pmean(lse.mean(), axes)}
 
 
 def prefill(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:

@@ -34,7 +34,12 @@ the reference, ``moe_apply`` takes one of three paths:
   the outputs back.
 
 Capacities are taken from the tokens a rank routes, as in the reference,
-so a mesh drops other tokens than one device does.
+so a mesh drops other tokens than one device does.  In training the
+tokens and the router enter through ``context.fan_out`` over ``expert``
+(each rank combines its own experts' outputs, or routes its own slice of
+the sequence), so their gradients add the ranks' parts, and the
+``efsdp`` weight gathers sum their gradients over the ranks before each
+takes its block.
 """
 
 from __future__ import annotations
@@ -282,7 +287,8 @@ def _local_moe_sharded_weights(cfg, x, router, w_gate, w_up, w_down, first_exper
     buf = buf.narrow(2, ctx.axis_index(fsdp_axes) * d_loc, d_loc)
     g = ctx.matmul_psum(buf, w_gate, fsdp_axes)
     u = ctx.matmul_psum(buf, w_up, fsdp_axes)
-    y = ctx.all_gather(torch.bmm(F.silu(g) * u, w_down), fsdp_axes, 2)  # (E_loc, C+1, D)
+    y = ctx.all_gather(torch.bmm(F.silu(g) * u, w_down), fsdp_axes, 2,
+                       adjoint="slice")  # (E_loc, C+1, D)
     return _combine(y.reshape(-1, D), flat, kept, r.top_p, x.dtype, partial=partial), r.aux
 
 
@@ -293,6 +299,17 @@ def _mesh_axes(cfg: ModelConfig):
     if not ep:
         raise ValueError(f"{cfg.name}: the mesh has no expert axis")
     return ep, ctx.physical_axes("efsdp"), ctx.batch_axes()
+
+
+def _gathered_experts(p: MoE, fsdp: tuple[str, ...]):
+    """``(w_gate, w_up, w_down)`` with their ``d_model`` dim gathered over
+    the ``efsdp`` axes (each rank's tokens differ, so the gradients are
+    summed over the ranks before each takes its block)."""
+    if not fsdp:
+        return p.w_gate, p.w_up, p.w_down
+    return (ctx.all_gather(p.w_gate, fsdp, 1, adjoint="sum"),
+            ctx.all_gather(p.w_up, fsdp, 1, adjoint="sum"),
+            ctx.all_gather(p.w_down, fsdp, 2, adjoint="sum"))
 
 
 def moe_ffn(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, decode: bool = False):
@@ -310,22 +327,20 @@ def moe_ffn(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, decode: bool = False):
     e_loc = p.w_gate.shape[0]
     first = ctx.axis_index(ep) * e_loc
     partial = ctx.current_mesh().axes_size(ep) > 1  # summed over ep in float32
+    x, router = ctx.fan_out(x, ep), ctx.fan_out(p.router, ep)
     if decode and fsdp:
         # every efsdp rank must hold the same tokens: gather the rows over
         # the batch axes the weights are sharded over
         over = tuple(a for a in batch if a in fsdp)
         batch = tuple(a for a in batch if a not in fsdp)
-        xs = ctx.all_gather(x, over, 0)
+        xs = ctx.all_gather(x, over, 0, adjoint="sum")
         out, aux = _local_moe_sharded_weights(
-            cfg, xs.reshape(-1, D), p.router, p.w_gate, p.w_up, p.w_down, first, factor, fsdp,
+            cfg, xs.reshape(-1, D), router, p.w_gate, p.w_up, p.w_down, first, factor, fsdp,
             partial=partial)
         out = ctx.local_rows(ctx.psum(out.view(xs.shape), ep).to(x.dtype), over)
     else:
-        wg, wu, wd = p.w_gate, p.w_up, p.w_down
-        if fsdp:  # prefill: gathers amortized over the tokens
-            wg, wu = ctx.all_gather(wg, fsdp, 1), ctx.all_gather(wu, fsdp, 1)
-            wd = ctx.all_gather(wd, fsdp, 2)
-        out, aux = local_moe(cfg, x.reshape(B * S, D), p.router, wg, wu, wd, first, factor,
+        wg, wu, wd = _gathered_experts(p, fsdp)
+        out, aux = local_moe(cfg, x.reshape(B * S, D), router, wg, wu, wd, first, factor,
                              partial=partial)
         out = ctx.psum(out, ep).to(x.dtype).view(B, S, D)
     return out, ctx.pmean(ctx.pmean(aux, ep), batch)
@@ -349,14 +364,11 @@ def moe_ffn_a2a(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     if S % n:
         raise ValueError(f"{cfg.name}: a2a needs the sequence ({S}) to split over {n} ranks")
     k, cf = cfg.experts_per_token, cfg.capacity_factor
-    wg, wu, wd = p.w_gate, p.w_up, p.w_down
-    if fsdp:
-        wg, wu = ctx.all_gather(wg, fsdp, 1), ctx.all_gather(wu, fsdp, 1)
-        wd = ctx.all_gather(wd, fsdp, 2)
+    wg, wu, wd = _gathered_experts(p, fsdp)
     sl = S // n
-    xt = x.narrow(1, ctx.axis_index(ep) * sl, sl).reshape(-1, D)
+    xt = ctx.fan_out(x, ep).narrow(1, ctx.axis_index(ep) * sl, sl).reshape(-1, D)
     t_loc = xt.shape[0]
-    top_p, top_i, aux = _select(cfg, xt, p.router)
+    top_p, top_i, aux = _select(cfg, xt, ctx.fan_out(p.router, ep))
 
     # per destination rank: which tokens go there and their gates for its
     # experts; a token dropped for capacity is *added* as zeros into the
@@ -397,7 +409,7 @@ def moe_ffn_a2a(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     back = ctx.all_to_all(y.view(n, c_send, D), ep).view(n * c_send, D)
     picked = back.index_select(0, (ranks * c_send + slot).reshape(-1)).view(t_loc, n, D)
     out = picked.masked_fill(~keep[..., None], 0).sum(dim=1)
-    out = ctx.all_gather(out.view(B, sl, D), ep, 1)
+    out = ctx.all_gather(out.view(B, sl, D), ep, 1, adjoint="slice")
     return out, ctx.pmean(ctx.pmean(aux, batch), ep)
 
 

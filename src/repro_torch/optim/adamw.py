@@ -12,6 +12,10 @@ follows the reference's float32 order: the bias corrections
 ``1 - b ** step`` in float32, then ``(m / c1) / (sqrt(v / c2) + eps)``,
 decay added to the step and ``p - lr * step`` last.  ``torch.optim.AdamW``
 decays ``p`` before its step, which rounds differently, so it is not used.
+
+Under a mesh the trees hold this rank's shards: the update stays
+elementwise, and :func:`global_norm` adds each leaf's sum of squares over
+the mesh, counting a leaf that several ranks hold once (``counted``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.parallel import context as ctx
 
 _F32 = torch.float32
 
@@ -73,17 +79,28 @@ def init(params: Any, moment_dtype: str = "float32") -> AdamWState:
     )
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """The L2 norm over every leaf, in float32."""
-    leaves = [torch.sum(torch.square(x.to(_F32))) for x in _leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree: Any, *, counted: Any = None) -> torch.Tensor:
+    """The L2 norm over every leaf, in float32.  ``counted``, a tree of
+    bools like ``tree``, makes it the norm of leaves that lie in shards
+    over the active mesh: each leaf's sum of squares is added over the
+    mesh, from the ranks where ``counted`` is true (one of the ranks
+    holding the same indices), before the sum over the leaves."""
+    leaves = _leaves(tree)
+    marks = [True] * len(leaves) if counted is None else _leaves(counted)
+    sums = torch.stack([torch.sum(torch.square(x.to(_F32))) if mark
+                        else torch.zeros((), dtype=_F32, device=x.device)
+                        for x, mark in zip(leaves, marks)])
+    if counted is not None and ctx.current_mesh() is not None:
+        sums = ctx.psum(sums, ctx.current_mesh().axis_names)
+    return torch.sqrt(torch.sum(sums))
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Any, max_norm: float) -> torch.Tensor:
-    """Scale each leaf of ``grads`` in place so their global norm is at
-    most ``max_norm``; returns the norm before scaling."""
-    norm = global_norm(grads)
+def clip_by_global_norm_(grads: Any, max_norm: float, *, counted: Any = None) -> torch.Tensor:
+    """Scale each leaf of ``grads`` in place so their global norm
+    (:func:`global_norm`, ``counted`` as there) is at most ``max_norm``;
+    returns the norm before scaling."""
+    norm = global_norm(grads, counted=counted)
     one = torch.ones((), dtype=_F32, device=norm.device)
     scale = torch.minimum(one, max_norm / torch.maximum(norm, torch.full_like(norm, 1e-9)))
     _map(lambda _, g: g.copy_((g.to(_F32) * scale).to(g.dtype)), grads)

@@ -27,9 +27,17 @@ row-major over the axes, as ``jax.make_mesh`` lays out devices) and one
 process group per set of axes that a collective may span.  The mesh and
 the rule table are thread-local, as in the reference.
 
-The collectives carry no backward (ROADMAP §1 P14 (multi-card)): a mesh
-forward whose input needs a gradient raises ``NotImplementedError``
-rather than return a silently wrong one.
+Every collective is differentiable.  Its backward is the adjoint for a
+loss that counts once: every rank holds the same loss and calls
+``backward`` on it, and a leaf's gradient gathered onto one rank equals
+one device's gradient of that loss.  A sum whose result every rank uses
+alike takes its cotangent as it is (:func:`psum`, :func:`matmul_psum`;
+:func:`pmean` scales it by ``1/n``); a replicated tensor that ranks use
+differently (an activation entering a rank-split product, a leaf that
+several ranks hold and each uses in part) passes through
+:func:`fan_out`, whose backward sums the cotangents (Megatron's "f");
+:func:`all_gather` says at each call which of its two adjoints it needs;
+:func:`all_to_all`'s backward is the inverse exchange.
 """
 
 from __future__ import annotations
@@ -58,12 +66,6 @@ _LOGICAL = {
     "cache_batch": ("data",),
     "cache_seq": ("model",),
 }
-
-NO_BACKWARD = (
-    "the mesh collectives carry no backward yet; training across ranks "
-    "waits for ROADMAP §1 P14 (multi-card)"
-)
-
 
 def _rules() -> dict[str, tuple[str, ...]]:
     """This thread's table, a copy of ``_LOGICAL`` until remapped."""
@@ -285,44 +287,171 @@ def local_rows(x: torch.Tensor, axes: tuple[str, ...] | None = None) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-def refuse_grad(tensors: Iterable[torch.Tensor]) -> None:
-    """Raise if a mesh is active, autograd is on and one of ``tensors``
-    needs a gradient (the collectives have no backward)."""
-    if current_mesh() is not None and torch.is_grad_enabled() and any(
-        t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(NO_BACKWARD)
-
-
-def _span(x: torch.Tensor, axes: Iterable[str]):
+def _span(axes: Iterable[str]):
     """``(mesh, axes in mesh order, ranks spanned)`` for a collective."""
     mesh = current_mesh()
     if mesh is None:
         return None, (), 1
-    refuse_grad((x,))
     axes = mesh.canonical(axes)
     return mesh, axes, mesh.axes_size(axes)
 
 
-def psum(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
-    """The sum of ``x`` over ``axes``, added in float32 and rounded once
-    to ``x``'s dtype; a contiguous float32 ``x`` is summed in place
-    (callers pass partial results they own)."""
-    mesh, axes, n = _span(x, axes)
-    if n == 1:
-        return x
-    wide = x.float().contiguous()
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...], *, owned: bool) -> torch.Tensor:
+    """``x`` summed over ``axes`` in float32 and rounded once to its dtype;
+    an ``owned`` contiguous float32 ``x`` is summed in place."""
+    wide = x.float()
+    if wide is x and not owned:
+        wide = wide.clone()
+    wide = wide.contiguous()
     dist.all_reduce(wide, group=mesh.group(axes))
     return wide.to(x.dtype)
+
+
+def _parts(x: torch.Tensor, mesh: Mesh, given: tuple[str, ...]) -> list[torch.Tensor]:
+    """Every rank's ``x`` over the axes ``given``, in the order of
+    :meth:`Mesh.axis_index` over them as given."""
+    axes = mesh.canonical(given)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.axes_size(axes))]
+    dist.all_gather(parts, x, group=mesh.group(axes))
+    # the group's ranks come in mesh order; put them in the given order
+    mine = mesh.coords()
+    members = [q for q in range(mesh.size)
+               if all(c == mine[a] for a, c in mesh.coords(q).items() if a not in axes)]
+    place = {mesh.axis_index(given, q): i for i, q in enumerate(members)}
+    return [parts[place[j]] for j in range(len(parts))]
+
+
+def _scatter_sum(g: torch.Tensor, mesh: Mesh, given: tuple[str, ...], dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``g`` summed over ``given`` (a
+    reduce-scatter, as an all-reduce and a slice: gloo has no
+    reduce-scatter)."""
+    n = mesh.axes_size(given)
+    size = g.shape[dim] // n
+    total = _sum(g, mesh, mesh.canonical(given), owned=False)
+    return total.narrow(dim, mesh.axis_index(given) * size, size)
+
+
+class _Psum(torch.autograd.Function):
+    """The sum of the ranks' ``x``; used alike on every rank, so its
+    cotangent is every rank's and passes through."""
+
+    @staticmethod
+    def forward(ctx_, x, mesh, axes):
+        return _sum(x, mesh, axes, owned=False)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g, None, None
+
+
+class _FanOut(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangents of the ranks
+    whose key is this rank's."""
+
+    @staticmethod
+    def forward(ctx_, x, mesh, given, keys):
+        ctx_.mesh, ctx_.given, ctx_.keys = mesh, given, keys
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        mesh, given, keys = ctx_.mesh, ctx_.given, ctx_.keys
+        if len(set(keys)) == 1:
+            return _sum(g, mesh, mesh.canonical(given), owned=False), None, None, None
+        mine = keys[mesh.axis_index(given)]
+        held = [p for p, k in zip(_parts(g, mesh, given), keys) if k == mine]
+        out = held[0].float()
+        for p in held[1:]:
+            out = out + p.float()
+        return out.to(g.dtype), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Concatenation of the ranks' ``x`` along ``dim``; the backward takes
+    this rank's block of the cotangent, summed over the ranks first where
+    ``adjoint`` is ``"sum"``."""
+
+    @staticmethod
+    def forward(ctx_, x, mesh, given, dim, adjoint):
+        ctx_.mesh, ctx_.given, ctx_.dim, ctx_.adjoint = mesh, given, dim, adjoint
+        return torch.cat(_parts(x, mesh, given), dim=dim)
+
+    @staticmethod
+    def backward(ctx_, g):
+        mesh, given, dim = ctx_.mesh, ctx_.given, ctx_.dim
+        if ctx_.adjoint == "sum":
+            return _scatter_sum(g, mesh, given, dim), None, None, None, None
+        size = g.shape[dim] // mesh.axes_size(given)
+        return g.narrow(dim, mesh.axis_index(given) * size, size), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The block exchange; the inverse exchange is the same one."""
+
+    @staticmethod
+    def forward(ctx_, x, mesh, axes):
+        ctx_.mesh, ctx_.axes = mesh, axes
+        return _exchange(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _exchange(g, ctx_.mesh, ctx_.axes), None, None
+
+
+def _exchange(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...]) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group(axes))
+    return out
+
+
+def psum(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``, added in float32 and rounded once
+    to ``x``'s dtype; outside autograd a contiguous float32 ``x`` is summed
+    in place (callers pass partial results they own).  The result is for
+    uses alike on every rank: its backward passes the cotangent through
+    (a result that ranks use differently goes through :func:`fan_out`)."""
+    mesh, axes, n = _span(axes)
+    if n == 1:
+        return x
+    if _needs_grad(x):
+        return _Psum.apply(x, mesh, axes)
+    return _sum(x, mesh, axes, owned=True)
+
+
+def fan_out(x: torch.Tensor, axes: Iterable[str], keys: Iterable | None = None) -> torch.Tensor:
+    """``x`` itself, replicated over ``axes`` and about to be used
+    differently on each rank (an activation entering a rank-split product,
+    a leaf several ranks hold): the backward sums the cotangents over
+    ``axes`` (Megatron's "f").  With ``keys`` (one per index over ``axes``
+    as given) it sums only those of the ranks whose key is this rank's,
+    the ranks holding the same indices of a leaf.  Outside autograd, or
+    where every key differs, it is ``x``."""
+    given = tuple(axes)
+    mesh, _, n = _span(given)
+    if n == 1 or not _needs_grad(x):
+        return x
+    keys = (0,) * n if keys is None else tuple(keys)
+    if len(keys) != n:
+        raise ValueError(f"{len(keys)} keys for {n} ranks over {given}")
+    if len(set(keys)) == n:
+        return x
+    return _FanOut.apply(x, mesh, given, keys)
 
 
 def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (``b`` 2-d, or both 3-d) in float32, unrounded.  On the
     card a bf16 or f16 product stays a half-precision GEMM that writes
     float32 (cuBLAS sums the products in float32 either way), so no
-    float32 copy of the weights is made; elsewhere the operands are
-    widened first (the CPU has no such GEMM)."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+    float32 copy of the weights is made; elsewhere, and where autograd
+    needs the product's gradient, the operands are widened first."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and not (
+            _needs_grad(a) or _needs_grad(b)):
         if b.dim() == 2:
             out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
             return out.view(*a.shape[:-1], b.shape[-1])
@@ -337,47 +466,60 @@ def matmul_psum(a: torch.Tensor, b: torch.Tensor, axes: Iterable[str]) -> torch.
     are summed in float32 (:func:`product_f32`), added over the ranks in
     float32 and rounded once to ``a``'s dtype, as one device's product
     rounds, so the result does not depend on how many ranks split the
-    sum.  Over one rank, plain ``a @ b``."""
-    mesh, axes, n = _span(a, axes)
+    sum.  Over one rank, plain ``a @ b``.  Its backward is
+    :func:`psum`'s."""
+    mesh, axes, n = _span(axes)
     if n == 1:
         return a @ b
-    refuse_grad((b,))
     return psum(product_f32(a, b), axes).to(a.dtype)
 
 
 def pmean(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
-    mesh, axes, n = _span(x, axes)
+    """The mean over ``axes`` (:func:`psum` over ``n``): its backward
+    scales the cotangent by ``1/n``."""
+    mesh, axes, n = _span(axes)
     return x if n == 1 else psum(x, axes) / n
 
 
-def all_gather(x: torch.Tensor, axes: Iterable[str], dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axes: Iterable[str], dim: int, *, adjoint: str) -> torch.Tensor:
     """Every rank's ``x`` over ``axes`` concatenated along ``dim`` in the
     order of :meth:`Mesh.axis_index` over ``axes`` as given (the
-    reference's tiled ``all_gather``)."""
+    reference's tiled ``all_gather``).  ``adjoint`` names the backward the
+    call site needs: ``"slice"`` where every rank then computes the same
+    thing on the result (this rank's block of the cotangent), ``"sum"``
+    where ranks use it on different rows (the cotangents summed over the
+    ranks, then this rank's block: a reduce-scatter, as an FSDP weight
+    gather needs)."""
+    if adjoint not in ("slice", "sum"):
+        raise ValueError(f"all_gather's adjoint is 'slice' or 'sum', not {adjoint!r}")
     given = tuple(axes)
-    mesh, axes, n = _span(x, given)
+    mesh, _, n = _span(given)
     if n == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=mesh.group(axes))
-    # the group's ranks come in mesh order; put them in the given order
-    mine = mesh.coords()
-    members = [q for q in range(mesh.size)
-               if all(c == mine[a] for a, c in mesh.coords(q).items() if a not in axes)]
-    place = {mesh.axis_index(given, q): i for i, q in enumerate(members)}
-    return torch.cat([parts[place[j]] for j in range(n)], dim=dim)
+    dim = dim % x.dim()
+    if _needs_grad(x):
+        return _AllGather.apply(x, mesh, given, dim, adjoint)
+    return torch.cat(_parts(x, mesh, given), dim=dim)
+
+
+def psum_scatter(x: torch.Tensor, axes: Iterable[str], dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over ``axes`` (in
+    float32, rounded once): the adjoint of :func:`all_gather`'s ``"sum"``
+    for a gradient formed outside autograd."""
+    given = tuple(axes)
+    mesh, _, n = _span(given)
+    return x if n == 1 else _scatter_sum(x, mesh, given, dim % x.dim())
 
 
 def all_to_all(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
     """``x`` (n, ...): block ``j`` goes to the rank of index ``j`` over
-    ``axes``; returns (n, ...) whose block ``i`` came from rank ``i``."""
-    mesh, axes, n = _span(x, axes)
+    ``axes``; returns (n, ...) whose block ``i`` came from rank ``i``.  Its
+    backward is the inverse exchange, which is the same one."""
+    mesh, axes, n = _span(axes)
     if n == 1:
         return x
     if x.shape[0] != n:
         raise ValueError(f"all_to_all over {n} ranks of {x.shape[0]} blocks")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=mesh.group(axes))
-    return out
+    if _needs_grad(x):
+        return _AllToAll.apply(x, mesh, axes)
+    return _exchange(x, mesh, axes)

@@ -9,9 +9,15 @@
   pluggable reaction hook.
 * :class:`FailureInjector` — deterministic fault injection for tests
   (fail at step k, resume, verify a bit-identical continuation).
+* :func:`remesh` — elastic scaling: a whole state cut to another mesh's
+  shards.  The port's checkpoints carry no mesh (every leaf whole), so a
+  state saved by 8 ranks resumes on 4.
 
-The reference's ``remesh`` (elastic re-sharding onto another mesh) needs
-several devices and waits for ROADMAP §1 P14 (multi-card).
+Under a mesh (``TrainLoop.cfg`` names the model whose leaves the state
+holds) the loop gathers the shards on the calling thread before a save,
+rank 0 alone writes (its writer thread runs no collective), and a resume
+waits for every rank at a barrier, restores the whole state and cuts
+this rank's shards into the live tensors.
 
 The port's training state is updated in place (the train step writes the
 new parameters and moments into the same tensors), so two things differ
@@ -29,8 +35,11 @@ from pathlib import Path
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import store
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.parallel import context as ctx
 
 
 class StragglerMonitor:
@@ -89,28 +98,51 @@ class TrainLoop:
 
     ``state`` is a tree of tensors (parameters, optimizer state) that
     ``step_fn(state, step) -> (state, metrics)`` advances by one training
-    step."""
+    step.  Under an active mesh ``state`` holds this rank's shards of
+    ``cfg``'s leaves (``launch.mesh.shard_state``'s layout), and ``cfg``
+    is required."""
 
     step_fn: Callable[[Any, int], tuple[Any, dict]]
     ckpt_dir: str | Path
     save_every: int = 50
     monitor: StragglerMonitor = field(default_factory=StragglerMonitor)
     injector: FailureInjector | None = None
+    cfg: Any = None
 
     def resume_step(self) -> int | None:
         return store.latest_step(self.ckpt_dir)
+
+    def _restore(self, step: int, state: Any, mesh) -> Any:
+        """The checkpoint of ``step`` restored into ``state``'s tensors:
+        whole, or under a mesh whole and then cut (:func:`remesh`)."""
+        if mesh is None:
+            return store.restore_into(self.ckpt_dir, step, state)
+        shards = remesh(store.restore(self.ckpt_dir, step, state), self.cfg, mesh)
+        with torch.no_grad():
+            for (key, live), (_, new) in zip(store._items(state), store._items(shards)):
+                if live.shape != new.shape or live.dtype != new.dtype:
+                    raise ValueError(f"{key}: restored {tuple(new.shape)} {new.dtype}, "
+                                     f"live {tuple(live.shape)} {live.dtype}")
+                live.copy_(new)
+        return state
 
     def run(self, state: Any, n_steps: int, *, start_step: int | None = None
             ) -> tuple[Any, int, list[dict]]:
         """Run up to ``n_steps`` total; resumes from the latest checkpoint
         (restored into ``state``) when ``start_step`` is None.  Returns
         ``(state, step, metrics)``."""
+        mesh = ctx.current_mesh()
+        if mesh is not None and self.cfg is None:
+            raise ValueError("a TrainLoop under a mesh needs cfg to gather and cut its state")
+        writer = mesh is None or mesh.rank == 0
         ckpt = store.AsyncCheckpointer(self.ckpt_dir)
         step = start_step
         if step is None:
+            if mesh is not None and mesh.size > 1:
+                dist.barrier()  # rank 0's last checkpoint is committed
             latest = self.resume_step()
             if latest is not None:
-                state = store.restore_into(self.ckpt_dir, latest, state)
+                state = self._restore(latest, state, mesh)
                 step = latest
             else:
                 step = 0
@@ -127,7 +159,19 @@ class TrainLoop:
                 history.append({"step": step, "seconds": dt, **metrics})
                 step += 1
                 if step % self.save_every == 0 or step == n_steps:
-                    ckpt.save(step, state)
+                    whole = state if mesh is None else mesh_lib.gather_state(self.cfg, state)
+                    if writer:
+                        ckpt.save(step, whole)
         finally:
             ckpt.wait()
         return state, step, history
+
+
+def remesh(state: Any, cfg, new_mesh) -> Any:
+    """Elastic re-shard: the whole ``state`` (every leaf whole, as a
+    checkpoint holds it or ``launch.mesh.gather_state`` returns it) cut to
+    this rank's shards of ``new_mesh`` under the active logical rules.
+    The cuts are mesh-relative, so any rank count whose axes divide the
+    leaves takes it."""
+    with ctx.use_mesh(new_mesh):
+        return mesh_lib.shard_state(cfg, state)

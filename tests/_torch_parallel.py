@@ -218,7 +218,7 @@ def moe_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
                     y, aux = moe_mod.moe_ffn_a2a(cfg, p, xl)
                 else:
                     y, aux = moe_mod.moe_ffn(cfg, p, xl, decode=case["path"] == "decode")
-                y = ctx.all_gather(y, ctx.batch_axes(), 0)
+                y = ctx.all_gather(y, ctx.batch_axes(), 0, adjoint="slice")
         out[name] = dict(out=numpy_of(y), aux=float(aux), dtype=str(y.dtype),
                          local_rows=xl.shape[0], dropped=int(sum(int(d) for d in drops)))
     return out
@@ -466,13 +466,14 @@ def context_rank(rank: int, world: int, trees_path: str, round_trips: list[dict]
     with ctx.use_mesh(m24):
         out["psum_model"] = float(ctx.psum(mine.clone(), ("model",)))
         out["pmean_data"] = float(ctx.pmean(mine.clone(), ("data",)))
-        out["gather_data"] = ctx.all_gather(mine.clone(), ("data",), 0).tolist()
+        out["gather_data"] = ctx.all_gather(mine.clone(), ("data",), 0, adjoint="slice").tolist()
         blocks = torch.tensor([[10.0 * rank + j] for j in range(4)])
         out["a2a_model"] = ctx.all_to_all(blocks, ("model",))[:, 0].tolist()
         out["bf16_psum"] = float(ctx.psum(torch.tensor([1.0 + 2**-7]).bfloat16(), ("model",)))
     with ctx.use_mesh(m222):
         out["coords_222"] = m222.coords()
-        out["gather_data_pod"] = ctx.all_gather(mine.clone(), ("data", "pod"), 0).tolist()
+        out["gather_data_pod"] = ctx.all_gather(mine.clone(), ("data", "pod"), 0,
+                                                  adjoint="slice").tolist()
         out["index_pod_data"] = ctx.axis_index(("pod", "data"))
     out["single"] = mesh_lib.make_production_mesh().sizes
     out["multi"] = mesh_lib.make_production_mesh(multi_pod=True, local=2).shape
@@ -505,4 +506,368 @@ def context_rank(rank: int, world: int, trees_path: str, round_trips: list[dict]
     with contextlib.redirect_stdout(printed):
         serve.main(["--reduced", "--mesh", "single", "--device", "cpu"])
     out["printed"] = printed.getvalue()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training across ranks
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 16, 3, 3e-4
+
+# The reference's side of each training case: parameters initialised under
+# the training cell (so split experts match the mesh) and placed by
+# ``tree_shardings``, then TRAIN_STEPS of its jitted ``make_train_step``
+# on one numpy batch.  ``f32_scan`` cases make the reference's training
+# scan store float32 (its bf16 storage, ROADMAP §3) through a shim of
+# ``repro.models.mamba.jnp``, as ``tests/test_torch_train.py`` does.
+TRAIN_REF_BODY = f"""
+import types
+import repro.models.mamba as ref_mamba
+from repro.configs.base import ShapeConfig, get_config
+from repro.launch import mesh as mesh_lib
+from repro.launch import steps
+from repro.models import model as M
+from repro.optim import adamw
+
+B, S, STEPS, LR = {TRAIN_B}, {TRAIN_S}, {TRAIN_STEPS}, {TRAIN_LR}
+JNP = ref_mamba.jnp
+SHIM = types.SimpleNamespace(**{{k: getattr(jnp, k) for k in dir(jnp) if not k.startswith("__")}})
+SHIM.bfloat16 = jnp.float32
+
+for case in CASES:
+    i = case["seed"]
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(), **case["fields"])
+    name = case["name"]
+    ref_mamba.jnp = SHIM if case["f32_scan"] else JNP
+    mesh = make_mesh(case["shape"])
+    tok = np.random.default_rng(300 + i).integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {{"tokens": tok[:, :-1], "labels": tok[:, 1:]}}
+    with mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", S, B, "train")):
+        params = M.init_params(cfg, jax.random.PRNGKey(i))
+        save_tree(name + "/params/", params)
+        params = jax.tree.map(jax.device_put, params,
+                              mesh_lib.tree_shardings(mesh, M.param_specs(cfg)))
+        opt = adamw.init(params, cfg.moment_dtype)
+        step = jax.jit(steps.make_train_step(cfg, accum=case["accum"],
+                                             lr_schedule=adamw.cosine_schedule(LR, 0, STEPS)))
+        hist = []
+        for s in range(STEPS):
+            params, opt, m = step(params, opt, batch, jnp.asarray(s, jnp.int32))
+            hist.append(m)
+    RESULTS[name + "/tokens"] = tok
+    for k in hist[0]:
+        RESULTS[name + "/hist/" + k] = np.array([float(m[k]) for m in hist], np.float32)
+    save_tree(name + "/final/", params)
+"""
+
+
+def train_case(arch: str, dtype: str, shape=(2, 4), *, accum: int = 1, impl: str = "gather",
+               cf: float = 1.25) -> dict:
+    """One training case: the reduced ``arch`` in ``dtype`` on ``shape``
+    with ``accum`` micro-batches; a mamba arch's reference scan stores
+    float32 in float32 cases (``f32_scan``), so float32 holds at rel 1e-4
+    and bf16 at 2e-2."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).reduced()
+    mamba = any(M.slot_kinds(cfg, s)[0] == "mamba" for s in range(cfg.group_size))
+    moe = any(M.slot_kinds(cfg, s)[2] == "moe" for s in range(cfg.group_size))
+    tag = "-".join(str(v) for v in shape)
+    name = f"{arch}-{tag}-{dtype}-accum{accum}" + (f"-{impl}-cf{cf}" if moe else "")
+    return dict(name=name, arch=arch, shape=list(shape), accum=accum, moe=moe,
+                fields=dict(compute_dtype=dtype, moe_impl=impl, capacity_factor=cf),
+                f32_scan=mamba and dtype == "float32",
+                tol=F32_RTOL if dtype == "float32" else BF16_TOL)
+
+
+def train_history(cfg, lm, batch: dict, accum: int, *, counts_drops: bool = False):
+    """``TRAIN_STEPS`` of the port's ``make_train_step`` on ``lm`` (its
+    shards under an active mesh) with ``batch``: ``(history, dropped)``,
+    the history a dict of per-step metric lists and ``dropped`` the
+    assignments this rank's first step dropped."""
+    from repro_torch.launch import steps
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw
+
+    step = steps.make_train_step(cfg, accum=accum,
+                                 lr_schedule=adamw.cosine_schedule(TRAIN_LR, 0, TRAIN_STEPS))
+    opt = adamw.init(steps.param_tree(lm), cfg.moment_dtype)
+    hist: dict[str, list] = {}
+    dropped = 0
+    for s in range(TRAIN_STEPS):
+        with moe_mod.drop_tally() as drops:
+            _, opt, metrics = step(lm, opt, batch, s)
+        if s == 0:
+            dropped = int(sum(int(d) for d in drops))
+        for k, v in metrics.items():
+            hist.setdefault(k, []).append(float(v))
+    assert int(opt.step) == TRAIN_STEPS
+    return hist, dropped
+
+
+def reference_history(ref: dict, name: str) -> dict:
+    prefix = f"{name}/hist/"
+    return {k[len(prefix):]: ref[k] for k in ref if k.startswith(prefix)}
+
+
+def train_batch(ref: dict, tree: str) -> dict:
+    tok = torch.as_tensor(ref[f"{tree}/tokens"])
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def _gradients(cfg, lm, batch: dict, aux_weight: float) -> dict:
+    """``loss_fn``'s gradient of every leaf of ``lm`` (this rank's shards
+    under a mesh) by ``backward``, gathered whole as the reference's
+    tree."""
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.models import model as M
+
+    loss, _ = M.loss_fn(cfg, lm, batch, aux_weight=aux_weight)
+    loss.backward()
+    grads = M._with_leaves(lm, {n: p.grad for n, p in lm.named_parameters()})
+    return _flat(lm_params_to_reference(cfg, grads))
+
+
+def train_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
+    """Each training case on this rank's shards of its reference tree
+    under the training cell: the history, the first step's dropped
+    assignments and (rank 0) the gathered parameters after the steps; a
+    case with ``aux_weight`` instead runs one ``loss_fn`` ``backward`` and
+    returns (rank 0) the gathered gradients."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import lm_params_to_reference, lm_shards_from_reference
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+
+    ref, mesh_of, out = _load(ref_path), meshes(), {}
+    for case in cases:
+        cfg = port_config(case)
+        tree = case.get("tree", case["name"])
+        batch = train_batch(ref, tree)
+        B, S = batch["tokens"].shape
+        with mesh_lib.cell_context(mesh_of(case["shape"]), cfg, ShapeConfig("t", S, B, "train")):
+            lm = M.train_mode(lm_shards_from_reference(cfg, tree_of(ref, f"{tree}/params/"),
+                                                       device="cpu"))
+            if "aux_weight" in case:
+                grads = _gradients(cfg, lm, batch, case["aux_weight"])
+                out[case["name"]] = dict(grads=grads if rank == 0 else None)
+                continue
+            hist, dropped = train_history(cfg, lm, batch, case["accum"])
+            final = lm_params_to_reference(cfg, lm)
+        out[case["name"]] = dict(hist=hist, dropped=dropped, final=_flat(final) if rank == 0 else None)
+    return out
+
+
+def port_gradients_without_mesh(ref: dict, case: dict) -> dict:
+    """:func:`_gradients` of the port with no mesh on a case's tree."""
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.models import model as M
+
+    cfg = port_config(case)
+    lm = M.train_mode(lm_params_from_reference(cfg, tree_of(ref, f"{case['tree']}/params/"),
+                                               device="cpu"))
+    return _gradients(cfg, lm, train_batch(ref, case["tree"]), case["aux_weight"])
+
+
+def port_train_without_mesh(ref: dict, case: dict) -> dict:
+    """The port's own ``--mesh none`` training of a case's reference tree:
+    its history and final parameters."""
+    from repro_torch.convert import lm_params_from_reference, lm_params_to_reference
+    from repro_torch.models import model as M
+
+    cfg = port_config(case)
+    tree = case.get("tree", case["name"])
+    lm = M.train_mode(lm_params_from_reference(cfg, tree_of(ref, f"{tree}/params/"), device="cpu"))
+    hist, _ = train_history(cfg, lm, train_batch(ref, tree), case["accum"])
+    return dict(hist=hist, final=_flat(lm_params_to_reference(cfg, lm)))
+
+
+def assert_params(got: dict, want: dict, tol: float, what: str) -> None:
+    """Every leaf at float32's rel 1e-4 of its largest magnitude, else
+    ``tol`` elementwise (atol and rtol)."""
+    assert set(got) == set(want), (what, set(got) ^ set(want))
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float32)
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, (what, k, g.shape, w.shape)
+        if tol == F32_RTOL:
+            gap = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+            assert gap <= tol, f"{what} {k}: rel gap {gap}"
+        else:
+            np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=f"{what} {k}")
+
+
+def assert_history(got: dict, want: dict, tol: float, what: str) -> None:
+    """Each metric the reference reports (loss, grad_norm, lr and at
+    accum 1 nll, aux and lse) step by step: rel ``tol``, aux (about 1e-2
+    of the loss) within ``tol`` of max(1, |aux|)."""
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        for s, (a, b) in enumerate(zip(g, w)):
+            scale = max(1.0, abs(float(b))) if k == "aux" else max(abs(float(b)), 1e-30)
+            assert abs(float(a) - float(b)) <= tol * scale, f"{what} {k} step {s}: {a} vs {b}"
+
+
+# ---------------------------------------------------------------------------
+# Gradient compression, remesh and resume
+# ---------------------------------------------------------------------------
+
+
+def compression_rank(rank: int, world: int, ref_path: str) -> dict:
+    """``compressed_psum_mean`` of this data rank's block of the
+    reference's ``x`` over ``data`` ((4, 2)) and over ``pod`` and
+    ``data`` ((2, 2, 2)), two ``compressed_grad_mean`` calls with the
+    residual carried, and both functions over one data rank ((1, 8)) and
+    with no mesh."""
+    from repro_torch.parallel import context as ctx
+    from repro_torch.parallel.compression import compressed_grad_mean, compressed_psum_mean
+
+    ref, mesh_of, out = _load(ref_path), meshes(), {}
+    x = torch.as_tensor(ref["x"])
+    with ctx.use_mesh(mesh_of((4, 2))):
+        out["mean_4x2"] = numpy_of(compressed_psum_mean(x[ctx.axis_index(("data",))], ("data",)))
+        g1, g2 = ({"w": torch.as_tensor(ref[k])} for k in ("g1", "g2"))
+        mean1, res1 = compressed_grad_mean(g1)
+        mean2, res2 = compressed_grad_mean(g2, res1)
+        out.update(mean1=numpy_of(mean1["w"]), res1=numpy_of(res1["w"]),
+                   mean2=numpy_of(mean2["w"]), res2=numpy_of(res2["w"]))
+    with ctx.use_mesh(mesh_of((2, 2, 2))):
+        block = x[ctx.axis_index(("pod", "data"))]
+        out["mean_222"] = numpy_of(compressed_psum_mean(block, ("pod", "data")))
+    with ctx.use_mesh(mesh_of((1, 8))):
+        block = x[0]
+        out["one_rank_is_x"] = compressed_psum_mean(block, ("data",)) is block
+        mean, res = compressed_grad_mean(g1)
+        out["one_rank_mean_equal"] = bool(torch.equal(mean["w"], g1["w"]))
+        out["one_rank_res_zero"] = bool((res["w"] == 0).all())
+    out["no_mesh"] = compressed_grad_mean(g1, "r") == (g1, "r")
+    return out
+
+
+REMESH_CFG = dict(arch="llama3-8b", fields=dict(compute_dtype="float32"))
+
+
+def _train_state(cfg, lm, seed: int):
+    """``(param_tree, AdamWState)`` of ``lm`` with moments drawn from
+    ``seed`` (so a cut of them is seen), whole."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    tree = steps.param_tree(lm)
+    opt = adamw.init(tree, cfg.moment_dtype)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for t in adamw._leaves(opt.m) + adamw._leaves(opt.v):
+            t.copy_(torch.rand(t.shape, generator=gen))
+    return tree, opt
+
+
+def _flat_state(state) -> dict[str, np.ndarray]:
+    from repro_torch.checkpoint import store
+
+    return {k: t.detach().numpy().copy() for k, t in store._items(state)}
+
+
+def _states_equal(a, b) -> bool:
+    fa, fb = _flat_state(a), _flat_state(b)
+    return fa.keys() == fb.keys() and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def remesh_rank(rank: int, world: int, tmp: str, phase: str) -> dict:
+    """The remesh and resume programs: ``phase`` ``"eight"`` on a (2, 4)
+    mesh, ``"four"`` on a (2, 2) mesh (see
+    ``tests/test_torch_parallel_remesh.py``)."""
+    import shutil
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context as ctx
+    from repro_torch.runtime.fault_tolerance import FailureInjector, TrainLoop, remesh
+
+    cfg = port_config(REMESH_CFG)
+    tmp = Path(tmp)
+    shape = (2, 4) if phase == "eight" else (2, 2)
+    mesh = ctx.make_mesh(shape, ("data", "model"))
+    stream = TokenStream(cfg, 16, 8, seed=5, device="cpu")
+    step = steps.make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-3, 0, 4))
+    out: dict = {}
+
+    def fresh():
+        """This rank's shards of the seed's model and zero moments, and a
+        TrainLoop step over them."""
+        whole = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        lm = M.train_mode(mesh_lib.shard_params(cfg, whole))
+        tree = steps.param_tree(lm)
+        state = (tree, adamw.init(tree, cfg.moment_dtype))
+
+        def step_fn(st, s):
+            _, opt = st
+            _, opt, metrics = step(lm, opt, stream.batch_at(s), s)
+            return (tree, opt), {"loss": float(metrics["loss"]),
+                                 "grad_norm": float(metrics["grad_norm"])}
+
+        return state, step_fn
+
+    def losses(history):
+        return [(h["step"], h["loss"], h["grad_norm"]) for h in history]
+
+    with mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", 16, 8, "train")):
+        if phase == "eight":
+            # a whole state cut under (2, 4), gathered, cut under (2, 2)
+            whole = M.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+            state = _train_state(cfg, whole, 2)
+            cut = mesh_lib.shard_state(cfg, state)
+            out["cut_shapes"] = {k: v.shape for k, v in _flat_state(cut).items()}
+            back = mesh_lib.gather_state(cfg, cut)
+            out["round_trip_equal"] = _states_equal(back, state)
+            out["recut_equal"] = all(
+                _states_equal(remesh(back, cfg, layout), remesh(state, cfg, layout))
+                for layout in (ctx.Mesh(("data", "model"), (2, 2), q) for q in range(4)))
+            # killed at step 2, after its checkpoint
+            state, step_fn = fresh()
+            loop = TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "killed", save_every=2,
+                             injector=FailureInjector({2}), cfg=cfg)
+            try:
+                loop.run(state, 4)
+            except FailureInjector.NodeFailure:
+                out["killed_at"] = 2
+            out["saved"] = _flat_state(store.restore(tmp / "killed", 2, state)) if rank == 0 else None
+            if rank == 0:
+                shutil.copytree(tmp / "killed", tmp / "killed8")
+            torch.distributed.barrier()
+            state, step_fn = fresh()
+            _, _, history = TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "killed8", save_every=2,
+                                      cfg=cfg).run(state, 4)
+            out["resumed"] = losses(history)
+            state, step_fn = fresh()
+            _, _, history = TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "whole8", save_every=2,
+                                      cfg=cfg).run(state, 4)
+            out["uninterrupted"] = losses(history)
+            out["files"] = sorted(p.name for p in (tmp / "whole8").iterdir())
+        else:
+            state, step_fn = fresh()
+            TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "killed", save_every=2, cfg=cfg).run(state, 2)
+            restored = _flat_state(mesh_lib.gather_state(cfg, state))
+            out["restored"] = restored if rank == 0 else None
+            state, step_fn = fresh()
+            _, _, history = TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "killed", save_every=2,
+                                      cfg=cfg).run(state, 4)
+            out["resumed"] = losses(history)
+            # the same state handed over without TrainLoop's resume
+            state, step_fn = fresh()
+            whole = store.restore(tmp / "killed", 2, state)
+            with torch.no_grad():
+                for (_, live), (_, new) in zip(store._items(state),
+                                               store._items(remesh(whole, cfg, mesh))):
+                    live.copy_(new)
+            _, _, history = TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "handed", save_every=2,
+                                      cfg=cfg).run(state, 4, start_step=2)
+            out["handed"] = losses(history)
     return out

@@ -1122,3 +1122,76 @@ def test_split_products_stay_half_precision_gemms_with_float32_output(cuda, dtyp
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
         assert not torch.equal(got, got.to(dtype).float())
+
+
+def test_one_rank_collectives_pass_gradients_through(cuda, tmp_path):
+    """On one NCCL rank every differentiable collective returns its input
+    and its backward the input's gradient (CUDA tensors, bf16 and
+    float32), and the mesh train step of reduced llama3-8b in bf16 (the
+    hoisted compute copy, float32 gradient buffers) gives the no-mesh
+    step's loss, gradient norm and parameters bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context as ctx
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = ctx.make_mesh((1, 1), ("data", "model"))
+        axes = mesh.axis_names
+        ops = [
+            lambda x: ctx.psum(x, axes),
+            lambda x: ctx.pmean(x, axes),
+            lambda x: ctx.fan_out(x, axes),
+            lambda x: ctx.fan_out(x, ("model",), keys=[0]),
+            lambda x: ctx.all_gather(x, axes, 0, adjoint="slice"),
+            lambda x: ctx.all_gather(x, axes, 1, adjoint="sum"),
+            lambda x: ctx.all_to_all(x, ("model",)),
+            lambda x: ctx.matmul_psum(x, torch.eye(8, device=cuda, dtype=x.dtype), ("model",)),
+        ]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        with ctx.use_mesh(mesh):
+            for dtype in (torch.float32, torch.bfloat16):
+                for i, op in enumerate(ops):
+                    x = torch.randn(1, 8, device=cuda, generator=g).to(dtype).requires_grad_()
+                    cot = torch.randn(1, 8, device=cuda, generator=g).to(dtype)
+                    y = op(x)
+                    assert torch.equal(y, x), (i, dtype)
+                    y.backward(cot)
+                    assert torch.equal(x.grad, cot), (i, dtype)
+
+        cfg = get_config("llama3-8b").reduced()  # bf16 compute, float32 masters
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16), device=cuda, generator=g,
+                                         dtype=torch.int32)}
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+
+        def train(cell):
+            params = M.train_mode(M.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda"))
+            step = steps.make_train_step(cfg, accum=2,
+                                         lr_schedule=adamw.cosine_schedule(1e-3, 0, 2))
+            with cell:
+                local = mesh_lib.shard_params(cfg, params)
+                opt = adamw.init(steps.param_tree(local), cfg.moment_dtype)
+                hist = []
+                for s in range(2):
+                    _, opt, m = step(local, opt, batch, s)
+                    hist.append((float(m["loss"]), float(m["grad_norm"])))
+            return hist, [p.detach().clone() for p in local.parameters()]
+
+        import contextlib
+
+        want, want_params = train(contextlib.nullcontext())
+        got, got_params = train(mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", 16, 4, "train")))
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    for a, b in zip(got_params, want_params):
+        assert torch.equal(a, b)

@@ -175,21 +175,39 @@ def test_a2a_without_a_mesh_matches_reference_moe_ffn_a2a(dtype):
 
 @pytest.mark.parametrize("impl", ["gather", "a2a"])
 def test_mesh_forward_needing_grad_raises(impl):
-    """The mesh collectives carry no backward: under a mesh (here one rank,
-    where every collective is the identity) a forward whose weights need
-    a gradient raises, naming the roadmap item; without autograd it runs."""
+    """A mesh forward that needs a gradient raised while the collectives
+    had no backward; now it runs.  Under a mesh of one rank, where every
+    collective and its backward are the identity, the output and the
+    gradients of the tokens, the router and the experts equal the no-mesh
+    ones: bit for bit on the gather path; within rel 1e-5 on the
+    all-to-all path, which dispatches in two levels, at a capacity factor
+    of 8 where neither drops (across ranks:
+    ``tests/test_torch_parallel_train.py``)."""
     from repro_torch.parallel import context as ctx
 
-    _, pcfg = _configs(compute_dtype="float32", moe_impl=impl)
-    pp = PMOE.init_moe_params(pcfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
-    pp.w_up.requires_grad_(True)
-    x = torch.zeros((1, 4, pcfg.d_model))
-    with ctx.use_mesh(ctx.Mesh(("data", "model"), (1, 1))):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 P14 \(multi-card\)"):
-            PMOE.moe_apply(pcfg, pp, x)
-        with torch.no_grad():
-            out, _ = PMOE.moe_apply(pcfg, pp, x)
-    assert out.shape == x.shape
+    _, pcfg = _configs(compute_dtype="float32", moe_impl=impl, capacity_factor=8.0)
+    x0 = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 8, pcfg.d_model)),
+                         dtype=torch.float32)
+
+    def run(mesh):
+        pp = PMOE.init_moe_params(pcfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+        for name in PMOE.MoE.LEAVES:
+            getattr(pp, name).requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        with ctx.use_mesh(mesh):
+            out, aux = PMOE.moe_apply(pcfg, pp, x)
+            (out.square().sum() + aux).backward()
+        return out.detach(), [x.grad] + [getattr(pp, n).grad for n in PMOE.MoE.LEAVES]
+
+    out, grads = run(ctx.Mesh(("data", "model"), (1, 1)))
+    want, want_grads = run(None)
+    for g, w in zip([out] + grads, [want] + want_grads):
+        assert g is not None
+        if impl == "gather":
+            assert torch.equal(g, w)
+        else:
+            assert_rel_to_scale(g, w, rtol=1e-5, what="a2a at one rank")
+    assert float(grads[1].abs().max()) > 0  # the router's gradient reaches it
 
 
 def test_init_matches_reference_leaves():

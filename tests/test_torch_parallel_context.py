@@ -148,41 +148,50 @@ def _cut(cfg, shape, rank, rules=None):
 @pytest.mark.parametrize("shape", [(2, 4), (1, 8)], ids=str)
 def test_attention_cut_by_heads(shape):
     """4 heads, 2 KV heads of 16: on 4 model ranks one head each and the
-    KV head it reads; on 8 half a head's rows of ``wo`` each."""
+    KV head it reads; on 8 half a head's rows of ``wo`` each.  Under the
+    default rules (``fsdp`` on ``data``) each dense matrix's ``d_model``
+    dim is also cut over ``data``."""
     cfg = get_config("llama3-8b").reduced()
-    tp = shape[1]
+    dp, tp = shape
     for rank in range(8):
         lm, local, cache = _cut(cfg, shape, rank)
-        i = rank % tp
+        i, j = rank % tp, rank // tp
+        d = slice(j * 64 // dp, (j + 1) * 64 // dp)  # this data rank's d_model block
         head = i * 4 // tp
         mix, whole = local.layers[0].mixer, lm.layers[0].mixer
-        assert torch.equal(mix.wq, whole.wq[:, head * 16 : (head + 1) * 16])
-        assert torch.equal(mix.wk, whole.wk[:, head // 2 * 16 : (head // 2 + 1) * 16])
+        assert torch.equal(mix.wq, whole.wq[d, head * 16 : (head + 1) * 16])
+        assert torch.equal(mix.wk, whole.wk[d, head // 2 * 16 : (head // 2 + 1) * 16])
         rows = 64 // tp
-        assert torch.equal(mix.wo, whole.wo[i * rows : (i + 1) * rows])
-        assert torch.equal(local.embed.table, lm.embed.table[i * 512 // tp : (i + 1) * 512 // tp])
-        assert torch.equal(local.lm_head, lm.lm_head[:, i * 512 // tp : (i + 1) * 512 // tp])
-        assert torch.equal(local.layers[0].ffn.w_down, lm.layers[0].ffn.w_down[i * 128 // tp :
-                                                                                (i + 1) * 128 // tp])
+        assert torch.equal(mix.wo, whole.wo[i * rows : (i + 1) * rows, d])
+        assert torch.equal(local.embed.table,
+                           lm.embed.table[i * 512 // tp : (i + 1) * 512 // tp, d])
+        assert torch.equal(local.lm_head, lm.lm_head[d, i * 512 // tp : (i + 1) * 512 // tp])
+        assert torch.equal(local.layers[0].ffn.w_down,
+                           lm.layers[0].ffn.w_down[i * 128 // tp : (i + 1) * 128 // tp, d])
         assert local.layers[0].norm1 is lm.layers[0].norm1  # replicated leaves are shared
         assert tuple(cache[0].k.shape) == (4 // shape[0], 8, 1, 16)
+    # a serving cell that replicates the model over data cuts by heads alone
+    _, local, _ = _cut(cfg, shape, 0, rules=dict(fsdp=()))
+    assert tuple(local.layers[0].mixer.wq.shape) == (64, 16)
 
 
 def test_mamba_cut_by_channel():
     """``in_proj``'s x and z halves each by channel; ``x_proj`` and
-    ``out_proj`` by rows; the cache's channels."""
+    ``out_proj`` by rows; the cache's channels; ``in_proj``'s and
+    ``out_proj``'s ``d_model`` dim over ``data`` (``fsdp``)."""
     cfg = get_config("falcon-mamba-7b").reduced()
     di = cfg.d_inner
     for rank in range(8):
         lm, local, cache = _cut(cfg, (2, 4), rank)
         ch = slice(rank % 4 * di // 4, (rank % 4 + 1) * di // 4)
+        d = slice(rank // 4 * 32, (rank // 4 + 1) * 32)
         mix, whole = local.layers[0].mixer, lm.layers[0].mixer
-        xz = torch.cat([whole.in_proj[:, :di][:, ch], whole.in_proj[:, di:][:, ch]], dim=1)
+        xz = torch.cat([whole.in_proj[d, :di][:, ch], whole.in_proj[d, di:][:, ch]], dim=1)
         assert torch.equal(mix.in_proj, xz)
         assert torch.equal(mix.x_proj, whole.x_proj[ch]) and torch.equal(mix.A_log, whole.A_log[ch])
         assert torch.equal(mix.conv_w, whole.conv_w[:, ch])
         assert torch.equal(mix.dt_proj, whole.dt_proj[:, ch])
-        assert torch.equal(mix.out_proj, whole.out_proj[ch])
+        assert torch.equal(mix.out_proj, whole.out_proj[ch, d])
         assert tuple(cache[0].conv.shape) == (2, cfg.ssm_conv - 1, di // 4)
         assert tuple(cache[0].ssm.shape) == (2, di // 4, cfg.ssm_state)
 
@@ -218,11 +227,22 @@ def test_cuts_refuse_splits_that_do_not_divide():
             moe_mod.moe_apply(moe_cfg, p, torch.zeros(1, 6, 64))
 
 
-def test_train_mesh_still_raises():
+def test_train_mesh_still_raises(tmp_path):
+    """Training runs across ranks now (``tests/test_torch_parallel_train.py``);
+    what still raises is a mesh the job cannot form: ``--mesh multi``
+    (two pods) in a job of one rank."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 P14 \(multi-card training\)"):
-        train.main(["--reduced", "--device", "cpu", "--mesh", "single"])
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="do not split into 2 pod"):
+            train.main(["--reduced", "--device", "cpu", "--mesh", "multi",
+                        "--ckpt-dir", str(tmp_path / "ckpt")])
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
