@@ -148,7 +148,8 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    against lm_danube_train's first two (losses, gradient norms and every
    parameter), K1's backward launches a step (48) and the step's wall
    time beside the no-mesh step's; lm_falcon_mamba_train's first step
-   through the mesh code (K2's backward 8 times, the loss bit-equal);
+   through the mesh code (K2's backward 8 times, the loss and gradient
+   norm bit-equal);
    ``compressed_psum_mean`` at one rank returning its input.
 
 Every profile whose kernel has a launch counter is held to it
@@ -2972,6 +2973,7 @@ def phase_lm_falcon_mamba_train() -> int:
     (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
     first = first_step_drop(opt, metrics)
     losses, walls = [float(metrics["loss"])], []
+    first_norm = float(metrics["grad_norm"])
     for s in range(1, n_steps):
         t0 = time.perf_counter()
         _, opt, metrics = step(params, opt, batch, s)
@@ -3010,7 +3012,7 @@ def phase_lm_falcon_mamba_train() -> int:
         peak_gb=peak_gb,
         step_profile=profile,
     )
-    return dict(counts=counts, loss=losses[0], ms_per_step=ms_step)
+    return dict(counts=counts, loss=losses[0], grad_norm=first_norm, ms_per_step=ms_step)
 
 
 def phase_lm_qwen3_moe() -> None:
@@ -3291,13 +3293,14 @@ def mesh_train_history(cfg, params, batch, n_steps: int, **step_args) -> tuple[l
 
 def phase_lm_mesh_train(danube: dict, falcon: dict) -> None:
     """Training across ranks on one card: the mesh train step (the hoisted
-    compute copy, float32 gradient buffers summed onto the shards, the
+    compute copy, each micro-batch's gradient summed onto the shards, the
     global norm over shards) at one rank, where every collective and its
     backward return their input, so it must reproduce the no-mesh step.
     The reduced archs on the card against the CPU; h2o-danube-1.8b at full
     size against lm_danube_train's first two steps (``danube``), bit for
-    bit; falcon's 8-layer step against lm_falcon_mamba_train's first
-    (``falcon``); ``compressed_psum_mean`` at one rank."""
+    bit; falcon's 8-layer step's loss and gradient norm against
+    lm_falcon_mamba_train's first (``falcon``); ``compressed_psum_mean``
+    at one rank."""
     import dataclasses
 
     import torch.distributed as dist
@@ -3401,13 +3404,14 @@ def phase_lm_mesh_train(danube: dict, falcon: dict) -> None:
                 lr_schedule=adamw.cosine_schedule(1e-5, 0, 4))
         del params
         free_card()
+        want = (falcon["loss"], falcon["grad_norm"])
         emit("lm_mesh_train_falcon", arch=cfg.name, layers=cfg.n_layers, loss=fal_hist[0][0],
-             no_mesh_loss=falcon["loss"], loss_bit_equal=fal_hist[0][0] == falcon["loss"],
-             launches=fal_counts)
+             grad_norm=fal_hist[0][1], no_mesh_loss=want[0], no_mesh_grad_norm=want[1],
+             bit_equal=fal_hist[0] == want, launches=fal_counts)
         check(fal_counts == falcon["counts"] and fal_counts["k2_bwd"] == cfg.n_layers,
               f"falcon mesh step launched {fal_counts}, not {falcon['counts']}")
-        check(fal_hist[0][0] == falcon["loss"],
-              f"falcon mesh loss {fal_hist[0][0]} differs from the no-mesh {falcon['loss']}")
+        check(fal_hist[0] == want,
+              f"falcon mesh loss and gradient norm {fal_hist[0]} differ from the no-mesh {want}")
 
         # the int8 error-feedback mean at one rank
         with ctx.use_mesh(mesh):

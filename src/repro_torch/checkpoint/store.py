@@ -101,11 +101,12 @@ class _Host:
 
     __slots__ = ("arr", "dtype")
 
-    def __init__(self, leaf: Any):
+    def __init__(self, leaf: Any, copy: bool = True):
         if isinstance(leaf, torch.Tensor):
-            # a copy even from host memory: the caller may update the leaf
-            # in place while a background thread writes this one
-            t = leaf.detach().to("cpu", copy=True)
+            # a copy even from host memory unless the caller hands the leaf
+            # over: it may update the leaf in place while a background
+            # thread writes this one
+            t = leaf.detach().to("cpu", copy=copy)
             if t.dtype == torch.bfloat16:
                 self.arr, self.dtype = t.view(torch.uint16).numpy(), "bfloat16"
             else:
@@ -217,15 +218,19 @@ def restore(directory: str | Path, step: int, like: Any) -> Any:
 
 
 @torch.no_grad()
-def restore_into(directory: str | Path, step: int, tree: Any) -> Any:
+def restore_into(directory: str | Path, step: int, tree: Any,
+                 cut: Callable[[str, torch.Tensor], torch.Tensor] | None = None) -> Any:
     """:func:`restore` into ``tree``'s own tensors, one leaf at a time
     through host memory (no second copy of the tree on its device);
-    returns ``tree``.  Every leaf must be a tensor of its saved shape and
-    dtype."""
+    returns ``tree``.  ``cut(key, t)``, where given, maps each saved leaf
+    ``t`` (on the host) to the part of it that ``tree``'s leaf holds.
+    Every leaf must be a tensor of its saved (or cut) shape and dtype."""
     path = Path(directory) / f"step_{step:08d}"
     leaves = json.loads((path / _MANIFEST).read_text())["leaves"]
     for key, leaf in _items(tree):
         t = _load(path, leaves[key])
+        if cut is not None:
+            t = cut(key, t)
         if t.shape != leaf.shape or t.dtype != leaf.dtype:
             raise ValueError(f"{key}: saved {tuple(t.shape)} {t.dtype}, "
                              f"live {tuple(leaf.shape)} {leaf.dtype}")
@@ -246,9 +251,13 @@ class AsyncCheckpointer:
             self._thread.join()
             self._thread = None
 
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, *, copy: bool = True) -> None:
+        """Write ``tree`` in the background, its leaves copied to the host
+        on the caller first; ``copy=False`` where the caller hands over
+        host tensors it will not touch again, which are written as they
+        are."""
         self.wait()  # bound to one in-flight write
-        host_tree = _rebuild(tree, _Host)  # device to host on the caller
+        host_tree = _rebuild(tree, lambda leaf: _Host(leaf, copy))  # device to host on the caller
 
         def work():
             save(self.directory, step, host_tree)

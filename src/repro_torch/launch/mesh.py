@@ -300,11 +300,11 @@ def gather_params(cfg: ModelConfig, lm):
 
 
 def _map_state(state, fn, name: str | None = None):
-    """``state`` with ``fn(name, tensor)`` applied to the tensors of every
-    dict in it, a dict being a parameter tree whose leaves are named by
-    their joined keys (``steps.param_tree``, AdamW's ``m`` and ``v``); a
-    ``None`` from ``fn`` keeps the leaf, and leaves outside a dict (the
-    step count) are kept."""
+    """``state`` with each tensor ``t`` replaced by ``fn(name, t)``, where
+    ``name`` is the parameter name of a tensor in a dict (a parameter tree
+    such as ``steps.param_tree`` or AdamW's ``m`` and ``v``: its joined
+    keys) and ``None`` for a tensor outside one (the step count); a
+    ``None`` from ``fn`` keeps the tensor."""
     if isinstance(state, dict):
         return {k: _map_state(v, fn, k if name is None else f"{name}.{k}")
                 for k, v in state.items()}
@@ -312,7 +312,7 @@ def _map_state(state, fn, name: str | None = None):
         return type(state)(*(_map_state(v, fn, name) for v in state))
     if isinstance(state, (list, tuple)):
         return type(state)(_map_state(v, fn, name) for v in state)
-    if name is None or not isinstance(state, torch.Tensor):
+    if not isinstance(state, torch.Tensor):
         return state
     out = fn(name, state)
     return state if out is None else out
@@ -325,15 +325,36 @@ def shard_state(cfg: ModelConfig, state):
     state itself with no mesh."""
     if ctx.current_mesh() is None:
         return state
-    return _map_state(state, lambda name, t: _cut_leaf(cfg, name, t))
+    return _map_state(state, lambda name, t: name and _cut_leaf(cfg, name, t))
 
 
-def gather_state(cfg: ModelConfig, state):
+def gather_state(cfg: ModelConfig, state, *, root: int | None = None):
     """The inverse of :func:`shard_state`: the whole state on every rank
-    (every rank takes part)."""
-    if ctx.current_mesh() is None:
+    (every rank takes part).  With ``root`` the whole state is for rank
+    ``root`` alone, in its host memory, every tensor a copy of its own:
+    each leaf is gathered and moved to the host before the next, so no
+    device holds more than one whole leaf; the other ranks get ``None``."""
+    mesh = ctx.current_mesh()
+    if mesh is None:
         return state
-    return _map_state(state, lambda name, t: _gather_leaf(cfg, name, t))
+    if root is None:
+        return _map_state(state, lambda name, t: name and _gather_leaf(cfg, name, t))
+    keep = mesh.rank == root
+
+    def to_root(name, t):
+        whole = name and _gather_leaf(cfg, name, t)
+        if not keep:
+            return None
+        return t.detach().to("cpu", copy=True) if whole is None else whole.cpu()
+
+    out = _map_state(state, to_root)
+    return out if keep else None
+
+
+def leaf_names(state):
+    """``state`` with each tensor of a parameter tree replaced by its
+    parameter name, the name :func:`shard_state` cuts it by."""
+    return _map_state(state, lambda name, t: name)
 
 
 def counted_leaves(cfg: ModelConfig, params) -> dict[str, bool]:

@@ -13,14 +13,15 @@ and mamba layers run K1 and K2 forward and backward as kernels on a card.
 Under an active mesh (``launch.mesh.cell_context`` of a ``"train"``
 shape) ``params`` and the moments are this rank's shards and ``batch``
 the whole global batch, whose rows the model cuts.  The step takes the
-reference's two mesh branches: the compute-dtype copy of the parameters,
-``fsdp`` shards gathered whole, is made once a step outside the
-micro-batch loop (its note c3); each micro-batch's gradient with respect
-to that copy is added into float32 buffers, and once a step each buffer
-is summed over the batch axes and cut to the shard: over the ``fsdp``
-axes as the gather's adjoint (a reduce-scatter, its note c1), over the
-others as the data-parallel sum (the loss's mean over the batch axes has
-scaled each rank's part already).  The global norm counts each leaf once
+reference's two mesh branches through autograd alone: the compute-dtype
+copy of the parameters, ``fsdp`` shards gathered whole, is made once a
+step outside the micro-batch loop (its note c3), and its graph is kept
+across the micro-batches, so each micro-batch's ``backward`` sums the
+gradient over the batch axes onto this rank's shard (the gather's
+backward, a reduce-scatter: its note c1; ``context.fan_out`` over the
+axes that do not cut the leaf) and adds it into the float32 master's
+``.grad``.  The loss's mean over the batch axes has scaled each rank's
+part already.  The global norm counts each leaf once
 (``adamw.global_norm``'s ``counted``) and AdamW updates the shards.
 
 ``make_prefill_step(cfg)`` returns ``(params, batch) -> last-position
@@ -84,54 +85,23 @@ def _micro_batches(batch: dict, accum: int) -> list[dict]:
 
 
 def _grads(cfg: ModelConfig, params: M.LM, micros: list[dict]):
-    """``(gradient per parameter name, loss sum, last parts)`` with no
-    mesh: each micro-batch's ``backward`` adds its float32 gradient into
-    the master leaves' ``.grad``."""
+    """``(gradient per parameter name, loss sum, last parts)``: the
+    compute copy made once (:func:`~repro_torch.models.model.cast_for_compute`
+    under autograd), then each micro-batch's ``backward`` through it,
+    which adds the micro-batch's float32 gradient into the master leaves'
+    ``.grad`` (summed onto this rank's shards under a mesh).  The copy's
+    graph is kept until the last micro-batch; each micro-batch's own
+    graph goes before the next one's forward."""
+    compute = M.cast_for_compute(cfg, params)
     l_sum = None
-    for micro in micros:
-        l, parts = M.loss_fn(cfg, params, micro)
-        l.backward()
+    for i, micro in enumerate(micros):
+        l, parts = M.loss_fn(cfg, compute, micro, cast=False)
+        l.backward(retain_graph=i + 1 < len(micros))
         l_sum = l.detach() if l_sum is None else l_sum + l.detach()
+        parts = {k: v.detach() for k, v in parts.items()}
+        del l
     grads = {name: torch.zeros_like(p) if p.grad is None else p.grad
              for name, p in params.named_parameters()}
-    return grads, l_sum, parts
-
-
-def _mesh_grads(cfg: ModelConfig, params: M.LM, micros: list[dict]):
-    """:func:`_grads` under a mesh: the compute copy gathered once (c3),
-    each micro-batch's gradient with respect to it added into float32
-    buffers (``a + b.astype(float32)``, as the reference accumulates),
-    then each buffer summed over the batch axes onto this rank's shard
-    (c1).  The micro-batch's rows must split over every batch axis
-    (``model.loss_fn`` raises where they do not)."""
-    with torch.no_grad():
-        compute = M.cast_for_compute(cfg, params)
-    named = [(n, t) for n, t in compute.named_parameters() if t.dtype.is_floating_point]
-    for _, t in named:
-        t.requires_grad_(True)
-    acc: list[torch.Tensor | None] = [None] * len(named)
-    l_sum = None
-    for micro in micros:
-        l, parts = M.loss_fn(cfg, compute, micro, cast=False)
-        gs = torch.autograd.grad(l, [t for _, t in named], allow_unused=True)
-        for i, g in enumerate(gs):
-            if g is not None:
-                acc[i] = g.float() if acc[i] is None else acc[i].add_(g.float())
-        l_sum = l.detach() if l_sum is None else l_sum + l.detach()
-    masters = dict(params.named_parameters())
-    batch_axes = ctx.physical_axes("batch")
-    grads = {}
-    with torch.no_grad():
-        for (name, _), g in zip(named, acc):
-            p = masters[name]
-            if g is None:
-                grads[name] = torch.zeros_like(p)
-                continue
-            cut = M.batch_cut_axes(name, p.ndim)
-            if cut and g.shape != p.shape:  # the hoisted gather's adjoint (c1)
-                g = ctx.psum_scatter(g, cut, M.fsdp_dim(name, p.ndim))
-            g = ctx.psum(g.contiguous(), [a for a in batch_axes if a not in cut])
-            grads[name] = g.to(p.dtype)
     return grads, l_sum, parts
 
 
@@ -144,25 +114,26 @@ def make_train_step(
 ) -> Callable:
     if lr_schedule is None:
         lr_schedule = adamw.cosine_schedule(3e-4, 200, 10_000)
+    counted: dict = {}  # per mesh: which leaves this rank counts in the norm
 
     def train_step(params: M.LM, opt_state: adamw.AdamWState, batch: dict, step):
         leaves = [p for p in params.parameters() if p.requires_grad]
         for p in leaves:
             p.grad = None
         micros = _micro_batches(batch, accum)
-        mesh = ctx.current_mesh()
-        by_name, l_sum, parts = (_grads if mesh is None else _mesh_grads)(cfg, params, micros)
+        by_name, l_sum, parts = _grads(cfg, params, micros)
         tree = param_tree(params)
         grads = _tree_of(by_name)
         if accum == 1:
             loss = l_sum
-            parts = {k: v.detach() for k, v in parts.items()}
         else:
             with torch.no_grad():
                 adamw._map(lambda _, g: g.div_(accum), grads)
             loss, parts = l_sum / accum, {}
-        counted = None if mesh is None else _tree_of(mesh_lib.counted_leaves(cfg, params))
-        gnorm = adamw.clip_by_global_norm_(grads, max_grad_norm, counted=counted)
+        mesh = ctx.current_mesh()
+        if mesh is not None and mesh not in counted:
+            counted[mesh] = _tree_of(mesh_lib.counted_leaves(cfg, params))
+        gnorm = adamw.clip_by_global_norm_(grads, max_grad_norm, counted=counted.get(mesh))
         lr = lr_schedule(torch.as_tensor(step))
         opt_state = adamw.update_(grads, opt_state, tree, lr=lr)
         for p in leaves:

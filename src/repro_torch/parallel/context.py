@@ -329,11 +329,11 @@ def _parts(x: torch.Tensor, mesh: Mesh, given: tuple[str, ...]) -> list[torch.Te
 def _scatter_sum(g: torch.Tensor, mesh: Mesh, given: tuple[str, ...], dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of ``g`` summed over ``given`` (a
     reduce-scatter, as an all-reduce and a slice: gloo has no
-    reduce-scatter)."""
+    reduce-scatter), copied out so the whole sum is freed."""
     n = mesh.axes_size(given)
     size = g.shape[dim] // n
     total = _sum(g, mesh, mesh.canonical(given), owned=False)
-    return total.narrow(dim, mesh.axis_index(given) * size, size)
+    return total.narrow(dim, mesh.axis_index(given) * size, size).clone()
 
 
 class _Psum(torch.autograd.Function):
@@ -500,15 +500,6 @@ def all_gather(x: torch.Tensor, axes: Iterable[str], dim: int, *, adjoint: str) 
     if _needs_grad(x):
         return _AllGather.apply(x, mesh, given, dim, adjoint)
     return torch.cat(_parts(x, mesh, given), dim=dim)
-
-
-def psum_scatter(x: torch.Tensor, axes: Iterable[str], dim: int) -> torch.Tensor:
-    """This rank's block along ``dim`` of ``x`` summed over ``axes`` (in
-    float32, rounded once): the adjoint of :func:`all_gather`'s ``"sum"``
-    for a gradient formed outside autograd."""
-    given = tuple(axes)
-    mesh, _, n = _span(given)
-    return x if n == 1 else _scatter_sum(x, mesh, given, dim % x.dim())
 
 
 def all_to_all(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:

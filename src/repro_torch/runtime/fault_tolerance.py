@@ -15,9 +15,10 @@
 
 Under a mesh (``TrainLoop.cfg`` names the model whose leaves the state
 holds) the loop gathers the shards on the calling thread before a save,
-rank 0 alone writes (its writer thread runs no collective), and a resume
-waits for every rank at a barrier, restores the whole state and cuts
-this rank's shards into the live tensors.
+leaf by leaf into rank 0's host memory; rank 0 alone writes (its writer
+thread runs no collective).  A resume waits for every rank at a barrier,
+then loads the checkpoint one whole leaf at a time on the host and cuts
+this rank's shard of it into the live tensor.
 
 The port's training state is updated in place (the train step writes the
 new parameters and moments into the same tensors), so two things differ
@@ -113,18 +114,19 @@ class TrainLoop:
         return store.latest_step(self.ckpt_dir)
 
     def _restore(self, step: int, state: Any, mesh) -> Any:
-        """The checkpoint of ``step`` restored into ``state``'s tensors:
-        whole, or under a mesh whole and then cut (:func:`remesh`)."""
+        """The checkpoint of ``step`` restored into ``state``'s tensors,
+        leaf by leaf through host memory: whole, or under a mesh each
+        whole leaf cut on the host to this rank's shard (:func:`remesh`)
+        before it is copied to the device."""
         if mesh is None:
             return store.restore_into(self.ckpt_dir, step, state)
-        shards = remesh(store.restore(self.ckpt_dir, step, state), self.cfg, mesh)
-        with torch.no_grad():
-            for (key, live), (_, new) in zip(store._items(state), store._items(shards)):
-                if live.shape != new.shape or live.dtype != new.dtype:
-                    raise ValueError(f"{key}: restored {tuple(new.shape)} {new.dtype}, "
-                                     f"live {tuple(live.shape)} {live.dtype}")
-                live.copy_(new)
-        return state
+        names = dict(store._items(mesh_lib.leaf_names(state)))
+
+        def cut(key: str, whole: torch.Tensor) -> torch.Tensor:
+            name = names[key]
+            return remesh({name: whole}, self.cfg, mesh)[name] if isinstance(name, str) else whole
+
+        return store.restore_into(self.ckpt_dir, step, state, cut)
 
     def run(self, state: Any, n_steps: int, *, start_step: int | None = None
             ) -> tuple[Any, int, list[dict]]:
@@ -134,7 +136,6 @@ class TrainLoop:
         mesh = ctx.current_mesh()
         if mesh is not None and self.cfg is None:
             raise ValueError("a TrainLoop under a mesh needs cfg to gather and cut its state")
-        writer = mesh is None or mesh.rank == 0
         ckpt = store.AsyncCheckpointer(self.ckpt_dir)
         step = start_step
         if step is None:
@@ -159,9 +160,12 @@ class TrainLoop:
                 history.append({"step": step, "seconds": dt, **metrics})
                 step += 1
                 if step % self.save_every == 0 or step == n_steps:
-                    whole = state if mesh is None else mesh_lib.gather_state(self.cfg, state)
-                    if writer:
-                        ckpt.save(step, whole)
+                    if mesh is None:
+                        ckpt.save(step, state)
+                    else:  # every rank gathers; rank 0 keeps the leaves on its host
+                        whole = mesh_lib.gather_state(self.cfg, state, root=0)
+                        if whole is not None:
+                            ckpt.save(step, whole, copy=False)
         finally:
             ckpt.wait()
         return state, step, history
