@@ -132,12 +132,20 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    (``cpu:gloo,cuda:nccl``) and ``--mesh single``'s mesh, the reduced
    llama3-8b, gemma2-9b, falcon-mamba-7b, qwen3-moe-30b-a3b and
    jamba-1.5-large-398b through the mesh code on the card against the same
-   code on the CPU, then qwen3-moe-30b-a3b at full size (the model of 16):
-   the gather path's prefill of 2 x 2048 against lm_qwen3_moe's
-   ``--mesh none`` logits (K1 48 times), the all-to-all path's prefill
-   with its dropped assignments beside the gather path's, and generate
-   (4 x 16 prompt + 16 tokens) through the no-gather decode path against
-   lm_qwen3_moe's tokens;
+   code on the CPU; the sequence-sharded decode cache at full size, each
+   against ``--mesh none`` bit for bit: llama3-8b at B = 1 with a
+   32,768-slot cache (4.29 GB) filled from a seeded generator, 8 decode
+   steps from position 32,760 under the ``long`` decode cell (the
+   sequence over every axis), and h2o-danube-1.8b at the ``long_500k``
+   shape (B = 1, a 4,096-slot ring at positions 524,280-524,287); then
+   qwen3-moe-30b-a3b at full size (lm_qwen3_moe runs here, after the long
+   caches are freed): the gather path's prefill of 2 x 2048 against
+   lm_qwen3_moe's ``--mesh none`` logits (K1 48 times), the all-to-all
+   path's prefill with its dropped assignments beside the gather path's,
+   and generate (4 x 16 prompt + 16 tokens) through 2-D decode tensor
+   parallelism (its weights exceed a quarter of the card) and the
+   no-gather MoE decode path, its tokens equal to lm_qwen3_moe's and its
+   decode step's ms beside theirs;
 18. lm_mesh_train — training across ranks at one rank, in a process group
    of one and the (1, 1) mesh under the training cell's rules: two
    float32 train steps of the five reduced archs of 17 through the mesh
@@ -162,6 +170,7 @@ without the repository's ``src/`` beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -3149,16 +3158,85 @@ MESH_ARCHS = ("llama3-8b", "gemma2-9b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
               "jamba-1.5-large-398b")
 
 
-def phase_lm_mesh(qwen3: dict) -> None:
+def long_decode(cfg, mesh, slots: int, first: int, steps: int) -> dict:
+    """``steps`` decode steps of ``cfg`` at full size and B = 1 from
+    position ``first`` against a cache of ``slots`` (a ring where the
+    arch's window is shorter) filled from a seeded generator, once with no
+    mesh and once under the ``long`` decode cell (B = 1: the sequence over
+    every axis of ``mesh``); the weights are freed after."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import model as M
+    from repro_torch.parallel import context as ctx
+
+    free_card()
+    gen = torch.Generator(device="cuda")
+    params = M.init_params(cfg, gen.manual_seed(0), device="cuda", compute=True)
+    params = M.cast_for_compute(cfg, params)
+    none_cache = M.init_cache(cfg, 1, slots, torch.bfloat16, device="cuda")
+    gen.manual_seed(1)
+    for entry in none_cache:
+        entry.k.normal_(generator=gen)
+        entry.v.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, steps), generator=gen.manual_seed(2),
+                           device="cuda", dtype=torch.int32)
+    shape = ShapeConfig("long", slots, 1, "decode")
+    with mesh_lib.cell_context(mesh, cfg, shape):
+        layout = dict(cache_seq=ctx.physical_axes("cache_seq"),
+                      cache_batch=ctx.physical_axes("cache_batch"), tp=ctx.physical_axes("tp"))
+        local = mesh_lib.shard_params(cfg, params)
+        mesh_cache = M.init_cache(cfg, 1, slots, torch.bfloat16, device="cuda")
+        for mine, whole in zip(mesh_cache, none_cache):
+            mine.k.copy_(whole.k)
+            mine.v.copy_(whole.v)
+    cache_bytes = sum(t.numel() * t.element_size() for e in none_cache for t in (e.k, e.v))
+    step = make_decode_step(cfg, cast=False)
+
+    def run(weights, cache, cell):
+        logits, walls = [], []
+        for t in range(steps):
+            with cell():
+                sync()
+                t0 = time.perf_counter()
+                _, lg, cache = step(weights, cache, tokens[:, t : t + 1], first + t)
+                sync()
+            walls.append(time.perf_counter() - t0)
+            logits.append(lg)
+        return torch.stack(logits), walls
+
+    none_logits, none_walls = run(params, none_cache, contextlib.nullcontext)
+    mesh_logits, mesh_walls = run(local, mesh_cache, lambda: mesh_lib.cell_context(mesh, cfg, shape))
+    out = dict(arch=cfg.name, mesh=mesh.shape, layout=layout, batch=1, slots=slots,
+               positions=[first, first + steps - 1], cache_gb=cache_bytes / 1e9,
+               local_cache_gb=sum(t.numel() * t.element_size()
+                                  for e in mesh_cache for t in (e.k, e.v)) / 1e9,
+               weights_shared_with_no_mesh=local is params,
+               logits_bit_equal=bool(torch.equal(mesh_logits, none_logits)),
+               logits_max_abs_diff=float((mesh_logits.float() - none_logits.float()).abs().max()),
+               logits_finite=bool(torch.isfinite(mesh_logits).all()),
+               ms_per_step=1e3 * min(mesh_walls[1:]), no_mesh_ms_per_step=1e3 * min(none_walls[1:]),
+               ms_per_step_runs=[1e3 * w for w in mesh_walls],
+               no_mesh_ms_per_step_runs=[1e3 * w for w in none_walls],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, local, none_cache, mesh_cache
+    free_card()
+    return out
+
+
+def phase_lm_mesh() -> None:
     """Serving across ranks on one card: the mesh code (``parallel``,
     ``launch.mesh``, the sharded layers and MoE paths) at one rank, where
     every collective spans one process, so the mesh paths must reproduce
     the no-mesh ones.  The reduced archs on the card against the same code
     on the CPU (bf16 prefill within rel 2e-2, jamba 4e-2 with its routers
-    zeroed; float32 tokens equal), then qwen3-moe-30b-a3b at full size
-    (``qwen3`` is what phase_lm_qwen3_moe returned): its weights exceed a
-    quarter of the card, so they stay sharded over ``efsdp`` and decode
-    takes the no-gather path."""
+    zeroed; float32 tokens equal); the sequence-sharded decode cache at
+    full size (llama3-8b's 32,768 slots, h2o-danube-1.8b's ``long_500k``
+    ring) bit-equal to ``--mesh none``; then qwen3-moe-30b-a3b at full
+    size (phase_lm_qwen3_moe runs here, once the long caches are freed):
+    its weights exceed a quarter of the card, so its decode cell takes
+    2-D tensor parallelism, its experts stay sharded over ``efsdp`` and
+    decode takes the no-gather path."""
     import copy
     import dataclasses
 
@@ -3211,6 +3289,22 @@ def phase_lm_mesh(qwen3: dict) -> None:
             check(equal, f"{name}: mesh float32 tokens differ between the card and the CPU")
         reduced_s = time.perf_counter() - t_start
 
+        # the sequence-sharded decode cache at full size, one rank holding
+        # every block: llama3-8b's 32,768 slots, danube's long_500k ring
+        t_long = time.perf_counter()
+        for cfg, slots, first in ((get_config("llama3-8b"), 32_768, 32_760),
+                                  (get_config("h2o-danube-1.8b"), 524_288, 524_280)):
+            row = long_decode(cfg, mesh, slots, first, 8)
+            emit("lm_mesh_long_decode", **row, nvidia_smi=nvidia_smi("name,power.limit"))
+            check(row["layout"]["cache_seq"] == ("data", "model") and not row["layout"]["cache_batch"],
+                  f"{cfg.name}: the long cell lays the cache out as {row['layout']}")
+            check(row["logits_finite"], f"{cfg.name}: long decode logits are not finite")
+            check(row["logits_bit_equal"],
+                  f"{cfg.name}: the long cell's decode differs from --mesh none by "
+                  f"{row['logits_max_abs_diff']}")
+        long_s = time.perf_counter() - t_long
+
+        qwen3 = phase_lm_qwen3_moe()
         cfg = get_config("qwen3-moe-30b-a3b")
         params, batch = qwen3["params"], qwen3["batch"]
         B, S = batch["tokens"].shape
@@ -3233,7 +3327,9 @@ def phase_lm_mesh(qwen3: dict) -> None:
         with mesh_lib.cell_context(mesh, cfg, ShapeConfig("serve", p16.shape[1] + new,
                                                           p16.shape[0], "decode")):
             decode_path = "no-gather" if ctx.physical_axes("efsdp") else "gather"
-            seqs, gen_s = timed_generate(cfg, local, p16, new)
+            decode_tp, decode_fsdp = ctx.physical_axes("tp"), ctx.physical_axes("fsdp")
+            decoding = mesh_lib.shard_params(cfg, params)  # the 2-D decode cut
+            seqs, gen_s = timed_generate(cfg, decoding, p16, new)
         # the no-mesh generate once more, after the mesh's: the decode steps
         # are host-bound, and the first generate of lm_qwen3_moe ran first
         _, none_after_s = timed_generate(cfg, params, p16, new)
@@ -3257,12 +3353,21 @@ def phase_lm_mesh(qwen3: dict) -> None:
             generate_s=gen_s, no_mesh_generate_s=qwen3["gen_s"],
             no_mesh_generate_s_after=none_after_s,
             generated_tokens_per_s=p16.shape[0] * new / gen_s,
+            decode_tp=list(decode_tp), decode_fsdp=list(decode_fsdp),
+            decode_weights_shared_with_no_mesh=decoding is params,
             ms_per_decode_step=1e3 * gen_s / steps_run,
+            no_mesh_ms_per_decode_step=1e3 * qwen3["gen_s"] / steps_run,
+            no_mesh_ms_per_decode_step_after=1e3 * none_after_s / steps_run,
             tokens_equal_no_mesh=bool(torch.equal(seqs, qwen3["seqs"])),
             nvidia_smi=nvidia_smi("name,power.limit"),
-            reduced_s=reduced_s, phase_s=time.perf_counter() - t_start,
+            reduced_s=reduced_s, long_s=long_s, phase_s=time.perf_counter() - t_start,
         )
-        check(local is params, "one rank's shards of qwen3 are not the whole model")
+        check(local is params and decoding is params,
+              "one rank's shards of qwen3 are not the whole model")
+        check(decode_tp == ("model", "data") and not decode_fsdp,
+              f"qwen3's decode cell took tp {decode_tp} and fsdp {decode_fsdp}, not 2-D TP")
+        check(bool(torch.equal(seqs, qwen3["seqs"])),
+              "qwen3's --mesh single tokens through 2-D decode TP differ from --mesh none's")
         check(k1 == cfg.n_layers and a2a_k1 == cfg.n_layers,
               f"mesh prefill launched K1 {k1} / {a2a_k1} times for {cfg.n_layers} layers")
         check(k2 == 0, f"mesh prefill launched K2 {k2} times in a model without mamba layers")
@@ -3474,7 +3579,7 @@ def main() -> int:
     flash_bwd_row["launches"] = danube["counts"]["k1_bwd"]  # one danube train step
     falcon = phase_lm_falcon_mamba_train()
     scan_bwd_row["launches"] = falcon["counts"]["k2_bwd"]  # one falcon (8 layers) step
-    phase_lm_mesh(phase_lm_qwen3_moe())
+    phase_lm_mesh()  # runs phase_lm_qwen3_moe once its long decode caches are freed
     phase_lm_mesh_train(danube, falcon)
     print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row]}), flush=True)
     print(smi, flush=True)

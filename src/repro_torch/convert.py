@@ -155,7 +155,9 @@ def lm_params_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
 
 def lm_shards_from_reference(cfg, tree: Mapping, *, device=DEFAULT_DEVICE):
     """This rank's shards (``launch.mesh.shard_params``) of the reference
-    tree under the active mesh and logical rules: the whole
+    tree under the active mesh and logical rules (under a decode cell of
+    weights not replicated, the 2-D decode cut of
+    ``launch.mesh.serve_decode_param_rules``): the whole
     :class:`~repro_torch.models.model.LM` with no mesh."""
     from repro_torch.launch.mesh import shard_params
 

@@ -30,7 +30,18 @@ shapes a rank must own whole:
   forward gathers them whole (``model.cast_for_compute``).  Training
   keeps ``fsdp`` and ``efsdp`` on ``data`` (:func:`cell_context`), as the
   reference's default rules do; serving replicates small models over
-  ``data``.
+  ``data``;
+* 2-D decode tensor parallelism: a decode cell of a model too large to
+  replicate over ``data`` cuts the dense tensor-parallel dims over
+  ``("model", "data")`` instead, with no ``fsdp`` cut
+  (:func:`serve_decode_param_rules`, the counterpart of the reference's
+  ``serve_decode_param_shardings``): the attention projections by flat
+  column blocks, as GSPMD cuts them (``attention.flat_projections``), the
+  rest as above over the 2-D axes; expert weights keep their ``efsdp``
+  cut.  No decode step gathers a dense weight.
+
+The decode cache lies by sequence (:func:`shard_cache`, the reference's
+``cache_specs``).
 
 A training state (the parameter tree and AdamW's moments) is cut and
 gathered leaf by leaf in the same way (:func:`shard_state`,
@@ -48,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.attention import KVCache, head_layout
+from repro_torch.models.attention import KVCache, projection_columns
 from repro_torch.models.layers import weight
 from repro_torch.models.mamba import MambaCache
 from repro_torch.models.model import EncDecCache, _with_leaves, fsdp_dim
@@ -123,11 +134,28 @@ def serve_params_replicated(cfg: ModelConfig, *, tp: int = 1) -> bool:
     return cfg.param_count() * 2 / tp <= SERVE_REPLICATION_SHARE * card_bytes()
 
 
+def serve_decode_param_rules() -> dict[str, tuple[str, ...]]:
+    """The logical rules of 2-D decode tensor parallelism (the reference's
+    ``serve_decode_param_shardings``, its "§Perf iteration d2"): the dense
+    tensor-parallel dims over ``model`` x ``data``, model major as the
+    reference's ``resolve`` lays ``("model", "data")``, and no ``fsdp``
+    cut, so no decode step gathers a dense weight; ``efsdp`` is left as it
+    is (the experts' no-gather decode path).  The reference scopes these
+    rules to the parameter tree and lets GSPMD move the activations; here
+    the layers run on them too: they sum their row-cut products over
+    both axes, and the decode rows are not cut over an axis of ``tp``
+    (``context.use_batch_rows``)."""
+    return {"fsdp": (), "tp": ("model", "data")}
+
+
 @contextlib.contextmanager
 def cell_context(mesh: ctx.Mesh, cfg: ModelConfig, shape: ShapeConfig):
     """Activate the mesh + the logical-axis policy for one (arch, shape)
     cell: decode-cache layout and the serve-time FSDP decision; training
-    (``kind == "train"``) shards dense and expert weights over ``data``."""
+    (``kind == "train"``) shards dense and expert weights over ``data``.
+    A decode cell whose weights are not replicated takes 2-D tensor
+    parallelism (:func:`serve_decode_param_rules`); a prefill cell keeps
+    ``fsdp`` on ``data`` (its gathers amortised by the sequence)."""
     overrides = {}
     axis_names = mesh.axis_names
     sizes = mesh.shape
@@ -136,8 +164,9 @@ def cell_context(mesh: ctx.Mesh, cfg: ModelConfig, shape: ShapeConfig):
     if shape.kind == "train":
         overrides["fsdp"] = ("data",)
         overrides["efsdp"] = ("data",)
+    replicated = serve_params_replicated(cfg, tp=sizes.get("model", 1))
     if shape.kind in ("decode", "prefill"):
-        if not serve_params_replicated(cfg, tp=sizes.get("model", 1)):
+        if not replicated:
             overrides["fsdp"] = ("data",)  # prefill: gathers amortized by T
         else:
             # small enough to replicate over data — dense AND expert weights
@@ -148,6 +177,8 @@ def cell_context(mesh: ctx.Mesh, cfg: ModelConfig, shape: ShapeConfig):
         cache_batch = tuple(usable) if shape.global_batch > 1 else ()
         overrides["cache_batch"] = cache_batch
         overrides["cache_seq"] = tuple(a for a in axis_names if a not in cache_batch)
+        if not replicated:
+            overrides.update(serve_decode_param_rules())
     with ctx.use_mesh(mesh), ctx.use_logical_rules(**overrides):
         yield
 
@@ -173,13 +204,8 @@ def _attn_plan(cfg, leaf: str, mesh: ctx.Mesh, rank: int) -> list:
     tp, i = _span("tp", mesh, rank)
     if tp == 1:
         return []
-    lay = head_layout(cfg, tp, i)
-    dh = cfg.head_dim
-    if leaf == "wq":
-        return [(1, torch.arange(lay.q0 * dh, (lay.q0 + lay.heads) * dh))]
-    if leaf in ("wk", "wv"):
-        return [(1, torch.arange(lay.kv0 * dh, (lay.kv0 + lay.kv_heads) * dh))]
-    return [(0, torch.arange(lay.wo0, lay.wo0 + lay.wo_rows))]
+    start, stop = projection_columns(cfg, tp, i)[leaf]
+    return [(int(leaf != "wo"), torch.arange(start, stop))]
 
 
 def _mamba_plan(cfg, leaf: str, mesh: ctx.Mesh, rank: int) -> list:
@@ -378,30 +404,45 @@ def counted_leaves(cfg: ModelConfig, params) -> dict[str, bool]:
 
 def shard_cache(cfg: ModelConfig, cache):
     """This rank's part of a whole decode cache (``model.init_cache``'s
-    layout) under the active mesh and rules, for a batch whose rows lie
-    over :func:`~repro_torch.parallel.context.divisible_batch_axes`: each
-    attention cache's rows and the KV heads of this rank's heads, each
-    mamba cache's rows and channels.  Returns ``cache`` itself with no
-    mesh."""
+    layout) under the active mesh and rules; ``cache`` itself with no
+    mesh.  The layout is the reference's ``cache_specs``:
+
+    * an attention cache (self-attention, SWA ring, an encoder-decoder's
+      cross cache): rows over ``cache_batch``, a block of the slots over
+      ``cache_seq`` (``context.tile``: blocks of ``ceil(slots / ranks)``
+      in row-major order over the axes, the last short or empty where the
+      ranks do not divide the slots, as GSPMD pads; whisper's 1,500 frames
+      over 8 ranks are seven blocks of 188 and one of 184), every KV head;
+      the :class:`~repro_torch.models.attention.KVCache` records the whole
+      slot count;
+    * a mamba cache: channels over ``tp`` and rows over ``cache_batch``,
+      as the reference's (``d_inner`` over ``model``).  Under 2-D decode
+      TP (:func:`serve_decode_param_rules`) the step computes every row
+      of its ``tp`` channel block, a block of ``model`` x ``data``, so its
+      cache holds those channels of every row over the ``cache_batch``
+      axes outside ``tp`` (the reference's layout would need the state
+      gathered over ``data`` every step).
+
+    A batch that ``cache_batch`` does not divide raises ``ValueError``."""
     mesh = ctx.current_mesh()
     if mesh is None:
         return cache
     tp, i = _span("tp", mesh, mesh.rank)
-
-    def rows(t):
-        return ctx.local_rows(t, ctx.divisible_batch_axes(t.shape[0]))
+    seq = ctx.physical_axes("cache_seq")
+    kv_rows = ctx.physical_axes("cache_batch")
+    ssm_rows = tuple(a for a in kv_rows if a not in ctx.physical_axes("tp"))
 
     def cut(entry):
         if isinstance(entry, KVCache):
-            if tp > 1:
-                lay = head_layout(cfg, tp, i)
-                entry = KVCache(*(t.narrow(2, lay.kv0, lay.kv_heads) for t in entry))
-            return KVCache(*(rows(t).contiguous() for t in entry))
+            start, size = ctx.tile(entry.slots, seq)
+            return KVCache(*(ctx.local_rows(t, kv_rows).narrow(1, start, size).contiguous()
+                             for t in (entry.k, entry.v)), length=entry.slots)
         conv, ssm = entry
         if tp > 1:
             ch = _block(cfg.d_inner, tp, i)
-            conv, ssm = _cut(conv, [(2, ch)]), _cut(ssm, [(1, ch)])
-        return MambaCache(rows(conv).contiguous(), rows(ssm).contiguous())
+            conv, ssm = conv.narrow(2, int(ch[0]), len(ch)), ssm.narrow(1, int(ch[0]), len(ch))
+        return MambaCache(ctx.local_rows(conv, ssm_rows).contiguous(),
+                          ctx.local_rows(ssm, ssm_rows).contiguous())
 
     if isinstance(cache, EncDecCache):
         return EncDecCache([cut(c) for c in cache.layers], [cut(c) for c in cache.cross])

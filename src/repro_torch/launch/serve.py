@@ -19,8 +19,11 @@ to the compute dtype leaf by leaf.
 ``--mesh single|multi`` serves across ranks (``launch.mesh``): it joins
 torchrun's job (gloo on ``--device cpu``, NCCL on ``cuda:LOCAL_RANK``),
 builds the production mesh, draws the whole model on every rank and keeps
-this rank's shards under the decode cell's rules; rank 0 draws the
-prompts and broadcasts them, and prints.
+this rank's shards under the decode cell's rules: the decode cache lies by
+sequence (each rank a block of the slots, all KV heads), and a model too
+large to replicate over ``data`` takes 2-D tensor parallelism
+(``launch.mesh.serve_decode_param_rules``); rank 0 draws the prompts and
+broadcasts them, and prints.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 embeddings, sinusoidal positions, the SwiGLU FFN, embeddings.
 
 Under a mesh the SwiGLU weights are split by ``d_ff`` and the embedding
-table and ``lm_head`` by vocabulary over ``model``: the FFN's and the
-lookup's partial results are added over ``model`` and the logits gathered
-(see :mod:`repro_torch.parallel.context`).  The replicated activations
+table and ``lm_head`` by vocabulary over ``tp`` (``model``; ``model`` x
+``data`` under 2-D decode tensor parallelism): the FFN's and the lookup's
+partial results are added over those ranks and the logits gathered (see
+:mod:`repro_torch.parallel.context`).  The replicated activations
 entering the split products pass through ``context.fan_out``, so their
 gradients add the ranks' parts."""
 

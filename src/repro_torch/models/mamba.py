@@ -17,7 +17,10 @@ space block, its O(1) decode step and its conv / SSM cache.
   channels of ``in_proj``'s x and z halves, of the conv, ``dt_proj``,
   ``A_log``, ``D`` and the caches; its rows of ``x_proj`` and
   ``out_proj``), so K2 runs on the local channels; the ``x_proj`` and
-  ``out_proj`` partial sums are added over ``model``.  The mixer's input
+  ``out_proj`` partial sums are added over ``model``.  Under 2-D decode
+  tensor parallelism the channels lie over ``model`` x ``data`` and the
+  sums run over both; the decode cache holds the rank's channels of every
+  row the step computes (``launch.mesh.shard_cache``).  The mixer's input
   and the summed ``x_proj`` output (dt, B and C, which each rank uses on
   its own channels) pass through ``context.fan_out``, so their gradients
   add the ranks' parts.

@@ -36,8 +36,10 @@ then differentiable, so gradients reach the float32 master leaves, and
 :func:`loss_fn` is the reference's training loss.
 
 Under a mesh (:mod:`repro_torch.parallel.context`) ``params`` and the
-decode cache are this rank's shards (``launch.mesh.shard_params``,
-:func:`init_cache`), while :func:`forward`, :func:`prefill` and
+decode cache are this rank's shards (``launch.mesh.shard_params``;
+:func:`init_cache`, whose attention caches lie by sequence over
+``cache_seq`` as the reference's ``cache_specs`` lays them, see
+``launch.mesh.shard_cache``), while :func:`forward`, :func:`prefill` and
 :func:`decode_step` take and return whole batches: each rank runs its
 block of the rows (over :func:`~repro_torch.parallel.context.divisible_batch_axes`)
 through its heads, channels, vocabulary and experts, and the outputs'
@@ -386,7 +388,7 @@ def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope:
             x = x + mb.mamba_mixer(cfg, layer.mixer, h)
         if enc_out is not None:
             h = rms_norm(x, layer.norm_cross, cfg.norm_eps)
-            kv = attn.cross_kv(cfg, layer.cross, enc_out)
+            kv = attn.cross_heads(cfg, layer.cross, enc_out)
             x = x + attn.mha(cfg, layer.cross, h, positions, causal=False, use_rope=False,
                              kv_override=kv)
         x, a = _ffn(cfg, layer, x, ffn)
@@ -548,16 +550,21 @@ def init_cache(
     window in ``dtype``, state in float32).  An encoder-decoder gets an
     :class:`EncDecCache`: self-attention caches sized by
     ``max_target_len`` and zeroed cross caches of ``seq_len`` encoder
-    frames.  Under a mesh it is this rank's part (``launch.mesh.shard_cache``)
-    of the cache of a ``batch`` whose rows lie over the divisible batch
-    axes."""
+    frames.  Under a mesh it is this rank's part of that cache
+    (``launch.mesh.shard_cache``: its rows, its block of each attention
+    cache's slots with all KV heads, its mamba channels), allocated at
+    that size: the whole cache is laid out on the ``meta`` device alone."""
     dev = resolve_device(device)
     if ctx.current_mesh() is not None:
         from repro_torch.launch.mesh import shard_cache
 
         with ctx.use_mesh(None):
-            whole = init_cache(cfg, batch, seq_len, dtype, device=dev)
-        return shard_cache(cfg, whole)
+            whole = _init_cache(cfg, batch, seq_len, dtype, torch.device("meta"))
+        return _zeros_like_cache(shard_cache(cfg, whole), dev)
+    return _init_cache(cfg, batch, seq_len, dtype, dev)
+
+
+def _init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype: torch.dtype, dev):
     size = cfg.max_target_len if cfg.is_encoder_decoder else seq_len
     cache = []
     for i in range(cfg.n_layers):
@@ -571,6 +578,17 @@ def init_cache(
     cross = [attn.init_kv_cache(cfg, batch, seq_len, kind="full", dtype=dtype, device=dev)
              for _ in range(cfg.n_layers)]
     return EncDecCache(cache, cross)
+
+
+def _zeros_like_cache(cache, dev):
+    """``cache`` (a layout on any device) as zeros on ``dev``."""
+    if isinstance(cache, EncDecCache):
+        return EncDecCache(_zeros_like_cache(cache.layers, dev), _zeros_like_cache(cache.cross, dev))
+    if isinstance(cache, list):
+        return [_zeros_like_cache(c, dev) for c in cache]
+    return cache._replace(**{
+        f: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        for f, t in cache._asdict().items() if isinstance(t, torch.Tensor)})
 
 
 def decode_step(

@@ -14,6 +14,12 @@ logical    physical axes
 None       replicated
 =========  =====================================================
 
+``"cache_batch"`` and ``"cache_seq"`` lay out a decode cache's rows and
+slots; ``launch.mesh.cell_context`` sets them per cell, and a decode
+cell whose weights are not replicated maps ``"tp"`` onto ``("model",
+"data")`` (2-D tensor parallelism, model major).  A dim cut over ranks
+that do not divide it is cut as GSPMD pads it (:func:`tile`).
+
 The reference states a layout with GSPMD constraints (``shard``,
 ``sharding``) and lets XLA insert the collectives; torch has no
 counterpart.  Here every rank holds its own shards
@@ -27,7 +33,8 @@ row-major over the axes, as ``jax.make_mesh`` lays out devices) and one
 process group per set of axes that a collective may span.  The mesh and
 the rule table are thread-local, as in the reference.
 
-Every collective is differentiable.  Its backward is the adjoint for a
+Every collective but :func:`pmax` (decode's, with no backward) is
+differentiable.  Its backward is the adjoint for a
 loss that counts once: every rank holds the same loss and calls
 ``backward`` on it, and a leaf's gradient gathered onto one rank equals
 one device's gradient of that loss.  A sum whose result every rank uses
@@ -104,14 +111,17 @@ class Mesh:
             raise ValueError(f"mesh axes {self.axis_names} do not match sizes {self.sizes}")
         if any(s < 1 for s in self.sizes) or not 0 <= self.rank < math.prod(self.sizes):
             raise ValueError(f"rank {self.rank} outside a mesh of sizes {self.sizes}")
+        # read on every collective: computed once
+        object.__setattr__(self, "_shape", dict(zip(self.axis_names, self.sizes)))
+        object.__setattr__(self, "_size", math.prod(self.sizes))
 
     @property
     def shape(self) -> dict[str, int]:
-        return dict(zip(self.axis_names, self.sizes))
+        return dict(self._shape)
 
     @property
     def size(self) -> int:
-        return math.prod(self.sizes)
+        return self._size
 
     def coords(self, rank: int | None = None) -> dict[str, int]:
         """``rank``'s (default: this rank's) index on every axis."""
@@ -127,13 +137,16 @@ class Mesh:
         return tuple(a for a in self.axis_names if a in axes)
 
     def axes_size(self, axes: Iterable[str]) -> int:
-        shape = self.shape
-        return math.prod(shape[a] for a in self.canonical(axes))
+        if self._size == 1:
+            return 1
+        return math.prod(self._shape[a] for a in self.canonical(axes))
 
     def axis_index(self, axes: Iterable[str], rank: int | None = None) -> int:
         """The row-major index over ``axes`` in the order given
         (``jax.lax.axis_index`` of the tuple)."""
-        coords, shape, idx = self.coords(rank), self.shape, 0
+        if self._size == 1:
+            return 0
+        coords, shape, idx = self.coords(rank), self._shape, 0
         for a in axes:
             if a in shape:
                 idx = idx * shape[a] + coords[a]
@@ -252,10 +265,13 @@ def divisible_batch_axes(n: int) -> tuple[str, ...]:
 @contextlib.contextmanager
 def use_batch_rows(n: int):
     """Inside, a model batch of ``n`` rows lies split over
-    :func:`divisible_batch_axes` (``n``), this rank holding its block
-    (:func:`local_rows`); yields those axes."""
+    :func:`divisible_batch_axes` (``n``) but those a tensor-parallel
+    product spans (2-D decode TP: every rank of a product holds the same
+    rows), this rank holding its block (:func:`local_rows`); yields those
+    axes."""
     prev = batch_axes()
-    _STATE.batch_axes = divisible_batch_axes(n)
+    tp = set(physical_axes("tp"))
+    _STATE.batch_axes = tuple(a for a in divisible_batch_axes(n) if a not in tp)
     try:
         yield _STATE.batch_axes
     finally:
@@ -282,6 +298,20 @@ def local_rows(x: torch.Tensor, axes: tuple[str, ...] | None = None) -> torch.Te
     return x.narrow(0, mesh.axis_index(axes) * rows, rows)
 
 
+def tile(n: int, axes: Iterable[str], rank: int | None = None) -> tuple[int, int]:
+    """``(start, size)`` of ``rank``'s (default: this rank's) block of a
+    dim of ``n`` cut over ``axes`` (row-major over them in the order
+    given), as GSPMD tiles a dim: blocks of ``ceil(n / ranks)``, the last
+    ones short or empty where the ranks do not divide ``n``.  ``(0, n)``
+    with no mesh or over one rank."""
+    mesh = current_mesh()
+    if mesh is None or mesh.axes_size(axes) == 1:
+        return 0, n
+    block = -(-n // mesh.axes_size(axes))
+    start = min(n, mesh.axis_index(axes, rank) * block)
+    return start, min(block, n - start)
+
+
 # ---------------------------------------------------------------------------
 # Collectives (identity with no mesh, or over axes of one rank)
 # ---------------------------------------------------------------------------
@@ -290,8 +320,8 @@ def local_rows(x: torch.Tensor, axes: tuple[str, ...] | None = None) -> torch.Te
 def _span(axes: Iterable[str]):
     """``(mesh, axes in mesh order, ranks spanned)`` for a collective."""
     mesh = current_mesh()
-    if mesh is None:
-        return None, (), 1
+    if mesh is None or mesh.size == 1:
+        return mesh, (), 1
     axes = mesh.canonical(axes)
     return mesh, axes, mesh.axes_size(axes)
 
@@ -479,6 +509,20 @@ def pmean(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
     scales the cotangent by ``1/n``."""
     mesh, axes, n = _span(axes)
     return x if n == 1 else psum(x, axes) / n
+
+
+def pmax(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
+    """The elementwise maximum over ``axes`` (a decode softmax's row
+    maximum over the cache's sequence shards).  It has no backward:
+    raises ``ValueError`` for an input that requires a gradient."""
+    mesh, axes, n = _span(axes)
+    if n == 1:
+        return x
+    if _needs_grad(x):
+        raise ValueError("pmax has no backward (it serves decode only)")
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    return out
 
 
 def all_gather(x: torch.Tensor, axes: Iterable[str], dim: int, *, adjoint: str) -> torch.Tensor:

@@ -226,9 +226,11 @@ def moe_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
 
 def lm_rank(rank: int, world: int, cases: list[dict], ref_path: str, steps_n: int) -> dict:
     """Each whole-model case: its reference tree cut to this rank's shards
-    under the prefill cell, a prefill, then ``steps_n`` teacher-forced
-    decode steps under the decode cell; returns the gathered logits, the
-    greedy tokens and the prefill's dropped assignments."""
+    under the prefill cell, a prefill, then cut under the decode cell (its
+    sequence-sharded cache; 2-D tensor parallelism where the weights are
+    not replicated) and ``steps_n`` teacher-forced decode steps; returns
+    the gathered logits, the greedy tokens and the prefill's dropped
+    assignments."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import lm_shards_from_reference
     from repro_torch.launch import mesh as mesh_lib
@@ -251,6 +253,8 @@ def lm_rank(rank: int, world: int, cases: list[dict], ref_path: str, steps_n: in
                 with moe_mod.drop_tally() as drops:
                     prefill = steps.make_prefill_step(cfg)(lm, {"tokens": tokens})
             with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
+                # a decode cell of weights not replicated over data cuts them in 2-D
+                lm = lm_shards_from_reference(cfg, tree_of(ref, f"{tree}/params/"), device="cpu")
                 cache = M.init_cache(cfg, B, S, getattr(torch, case["cache_dtype"]), device="cpu")
                 step = steps.make_decode_step(cfg)
                 logits, toks = [], []
@@ -870,4 +874,255 @@ def remesh_rank(rank: int, world: int, tmp: str, phase: str) -> dict:
             _, _, history = TrainLoop(step_fn=step_fn, ckpt_dir=tmp / "handed", save_every=2,
                                       cfg=cfg).run(state, 4, start_step=2)
             out["handed"] = losses(history)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sequence-sharded decode caches and 2-D decode tensor parallelism
+# ---------------------------------------------------------------------------
+
+# The reference's side of each decode case: parameters initialised under
+# the prefill cell, its jitted prefill step (``prefill`` cases), then
+# teacher-forced decode steps under the decode cell from a cache of
+# ``seq`` slots (whisper's cross cache filled by its ``cross_kv`` from a
+# seeded encoder output of ``frames`` frames).  ``two_d`` cases set the
+# replication limit to 1 byte and jit the step with the parameters placed
+# by ``serve_decode_param_shardings`` and the cache by ``cache_specs``, as
+# ``launch.dryrun.lower_cell`` lowers a big model's decode cell, and write
+# each device's shard of every parameter.  Every cache leaf is written whole, and each device's shard of it under
+# ``cache_specs`` as GSPMD tiles a dim: padded to a multiple of its ranks,
+# so the last blocks are short or empty where they do not divide it.
+DECODE_REF_BODY = """
+from jax.sharding import NamedSharding
+from repro.configs.base import ShapeConfig, get_config
+from repro.launch import mesh as mesh_lib
+from repro.launch import steps
+from repro.models import attention as A
+from repro.models import model as M
+
+LIMIT = mesh_lib.SERVE_REPLICATION_LIMIT
+
+
+def zero_routers(params):
+    groups = {
+        slot: {**p, "ffn": {**p["ffn"], "router": jnp.zeros_like(p["ffn"]["router"])}}
+        if "router" in p.get("ffn", {}) else p
+        for slot, p in params["groups"].items()
+    }
+    return {**params, "groups": groups}
+
+
+def path_name(path):
+    return "/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path)
+
+
+def shard_of(x, sharding, device):
+    # GSPMD's tile of an uneven dim: the dim padded to a multiple of its
+    # ranks; numpy's slicing then clamps the padded blocks
+    sizes = dict(zip(sharding.mesh.axis_names, sharding.mesh.devices.shape))
+    spec = tuple(sharding.spec) + (None,) * (x.ndim - len(sharding.spec))
+    parts = [1 if e is None else int(np.prod([sizes[a] for a in ((e,) if isinstance(e, str) else e)]))
+             for e in spec]
+    padded = tuple(-(-n // f) * f for n, f in zip(x.shape, parts))
+    return x[sharding.devices_indices_map(padded)[device]]
+
+
+for case in CASES:
+    i = case["seed"]
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(), **case["fields"])
+    name = case["name"]
+    mesh = make_mesh(case["shape"])
+    B, S, STEPS = case["batch"], case["seq"], case["steps"]
+    tokens = np.random.default_rng(200 + i).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    mesh_lib.SERVE_REPLICATION_LIMIT = 1 if case["two_d"] else LIMIT
+    with mesh_lib.cell_context(mesh, cfg, ShapeConfig("p", S, B, "prefill")):
+        params = M.init_params(cfg, jax.random.PRNGKey(i))
+        if case["zero_routers"]:
+            params = zero_routers(params)
+        if case["prefill"]:
+            RESULTS[name + "/prefill"] = host(
+                jax.jit(steps.make_prefill_step(cfg))(params, {"tokens": tokens}))
+    with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
+        cache = M.init_cache(cfg, B, S, jnp.dtype(case["cache_dtype"]))
+        if cfg.is_encoder_decoder:
+            compute = jnp.dtype(cfg.compute_dtype)
+            enc = np.random.default_rng(300 + i).standard_normal(
+                (B, case["frames"], cfg.d_model)).astype(np.float32)
+            RESULTS[name + "/enc"] = enc
+            p = M.cast_for_compute(cfg, params)["groups"]["slot0"]["cross"]
+            proj = jax.jit(lambda w, e: A.cross_kv(cfg, w, e))
+            ks, vs = zip(*(proj(jax.tree.map(lambda x, g=g: x[g], p), jnp.asarray(enc, compute))
+                           for g in range(cfg.n_groups)))
+            dt = jnp.dtype(case["cache_dtype"])
+            cache["cross"] = A.KVCache(k=jnp.stack(ks).astype(dt), v=jnp.stack(vs).astype(dt))
+        cache_sh = mesh_lib.tree_shardings(mesh, M.cache_specs(cfg))
+        fn = steps.make_decode_step(cfg)
+        if case["two_d"]:
+            serve = M.cast_for_compute(cfg, params)
+            param_sh = mesh_lib.serve_decode_param_shardings(mesh, cfg)
+            serve = jax.tree.map(jax.device_put, serve, param_sh)
+            cache = jax.tree.map(jax.device_put, cache, cache_sh)
+            for (path, leaf), sh in zip(
+                    jax.tree_util.tree_flatten_with_path(serve)[0],
+                    jax.tree.leaves(param_sh, is_leaf=lambda x: isinstance(x, NamedSharding))):
+                for d in range(mesh.devices.shape[0]):
+                    for m in range(mesh.devices.shape[1]):
+                        RESULTS[f"{name}/pshard/{d}-{m}/{path_name(path)}"] = shard_of(
+                            host(leaf), sh, mesh.devices[d, m])
+            step = jax.jit(fn, in_shardings=(param_sh, cache_sh, None, None),
+                           out_shardings=(None, None, cache_sh))
+            params = serve
+        else:
+            step = jax.jit(fn)
+        logits, toks = [], []
+        for t in range(STEPS):
+            nxt, lg, cache = step(params, cache, tokens[:, t : t + 1], jnp.asarray(t, jnp.int32))
+            logits.append(host(lg))
+            toks.append(host(nxt))
+    mesh_lib.SERVE_REPLICATION_LIMIT = LIMIT
+    RESULTS[name + "/tokens"] = tokens
+    RESULTS[name + "/decode"] = np.stack(logits)
+    RESULTS[name + "/next"] = np.stack(toks)
+    save_tree(name + "/params/", params)
+    flat_cache = jax.tree_util.tree_flatten_with_path(cache)[0]
+    flat_sh = jax.tree.leaves(cache_sh, is_leaf=lambda x: isinstance(x, NamedSharding))
+    for (path, leaf), sh in zip(flat_cache, flat_sh):
+        leaf = host(leaf)
+        RESULTS[name + "/cache/" + path_name(path)] = leaf
+        for d in range(mesh.devices.shape[0]):
+            for m in range(mesh.devices.shape[1]):
+                RESULTS[f"{name}/shard/{d}-{m}/{path_name(path)}"] = shard_of(
+                    leaf, sh, mesh.devices[d, m])
+"""
+
+
+def decode_case(arch: str, dtype: str, batch: int, *, seq: int = 20, steps: int = 12,
+                two_d: bool = False, prefill: bool = True, frames: int = 0,
+                fields: dict | None = None) -> dict:
+    """One decode case on a (2, 4) mesh: the reduced ``arch`` in
+    ``dtype`` at ``batch`` rows (2: the cache's rows over ``data``, its
+    slots over ``model``; 1: its slots over all 8 ranks), ``steps``
+    teacher-forced decode steps from a cache of ``seq`` slots, with the
+    caches, tolerances and zeroed routers of :func:`lm_case`."""
+    case = lm_case(arch, dtype)
+    tag = f"-b{batch}" + ("-2d" * two_d)
+    case.update(name=case["name"] + tag, batch=batch, seq=seq, steps=steps, two_d=two_d,
+                prefill=prefill, frames=frames)
+    case["fields"] = {**case["fields"], **(fields or {})}
+    return case
+
+
+def _cache_leaves(cfg, cache) -> dict[str, np.ndarray]:
+    """A port cache's leaves under the reference's names
+    (``slot<s>/k`` with the group leading, ``cross/k``) for group ``g``
+    as ``<name>@<g>``."""
+    from repro_torch.models.attention import KVCache
+
+    out = {}
+    layers = cache.layers if hasattr(cache, "cross") else cache
+    for i, entry in enumerate(layers):
+        g, s = divmod(i, cfg.group_size)
+        fields = ("k", "v") if isinstance(entry, KVCache) else ("conv", "ssm")
+        for f in fields:
+            out[f"slot{s}/{f}@{g}"] = numpy_of(getattr(entry, f))
+    for g, entry in enumerate(getattr(cache, "cross", [])):
+        for f in ("k", "v"):
+            out[f"cross/{f}@{g}"] = numpy_of(getattr(entry, f))
+    return out
+
+
+def run_decode(cfg, lm, ref: dict, case: dict) -> tuple[np.ndarray, np.ndarray, object]:
+    """The port's teacher-forced decode of a case under the active cell
+    (or none): ``(logits, greedy tokens, cache)``, whisper's cross cache
+    filled by ``attention.cross_kv`` from the reference's encoder
+    output."""
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+
+    tokens = torch.as_tensor(ref[f"{case['name']}/tokens"])
+    B, S = tokens.shape
+    dtype = getattr(torch, case["cache_dtype"])
+    cache = M.init_cache(cfg, B, case["frames"] or S, dtype, device="cpu")
+    if cfg.is_encoder_decoder:
+        compute = M.cast_for_compute(cfg, lm)
+        enc = torch.as_tensor(ref[f"{case['name']}/enc"]).to(getattr(torch, cfg.compute_dtype))
+        with torch.no_grad():
+            for layer, entry in zip(compute.layers, cache.cross):
+                k, v = A.cross_kv(cfg, layer.cross, enc)
+                entry.k.copy_(k)
+                entry.v.copy_(v)
+    step = steps.make_decode_step(cfg)
+    logits, toks = [], []
+    for t in range(case["steps"]):
+        nxt, lg, cache = step(lm, cache, tokens[:, t : t + 1], t)
+        logits.append(numpy_of(lg))
+        toks.append(nxt.numpy())
+    return np.stack(logits), np.stack(toks), cache
+
+
+def decode_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
+    """Each decode case on this rank: the prefill (``prefill`` cases) on
+    the shards cut under the prefill cell, then the decode steps on those
+    cut under the decode cell; returns the logits, the greedy tokens, this
+    rank's cache leaves, per dense leaf its elements here and whole and
+    whether ``cast_for_compute`` left its shape, and (2-D cases) every
+    leaf this rank holds and whether ``lm_params_to_reference`` gathers
+    the whole tree back bit for bit."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import lm_params_from_reference, lm_params_to_reference
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    ref, mesh_of, out = _load(ref_path), meshes(), {}
+    share = mesh_lib.SERVE_REPLICATION_SHARE
+    for case in cases:
+        cfg = port_config(case)
+        name = case["name"]
+        whole = lm_params_from_reference(cfg, tree_of(ref, f"{name}/params/"), device="cpu")
+        want = _flat(lm_params_to_reference(cfg, whole))
+        tokens = torch.as_tensor(ref[f"{name}/tokens"])
+        B, S = tokens.shape
+        mesh = mesh_of(case["shape"])
+        res = {}
+        mesh_lib.SERVE_REPLICATION_SHARE = 0.0 if case["two_d"] else share
+        try:
+            if case["prefill"]:
+                with mesh_lib.cell_context(mesh, cfg, ShapeConfig("p", S, B, "prefill")):
+                    lm = mesh_lib.shard_params(cfg, whole)
+                    res["prefill"] = numpy_of(steps.make_prefill_step(cfg)(lm, {"tokens": tokens}))
+            with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
+                lm = mesh_lib.shard_params(cfg, whole)
+                res["decode"], res["tokens"], cache = run_decode(cfg, lm, ref, case)
+                res["cache"] = _cache_leaves(cfg, cache)
+                cast = M.cast_for_compute(cfg, lm)
+                res["weights"] = {
+                    n: (p.numel(), dict(whole.named_parameters())[n].numel(),
+                        tuple(dict(cast.named_parameters())[n].shape) == tuple(p.shape))
+                    for n, p in lm.named_parameters() if M.fsdp_dim(n, p.ndim) is not None}
+                if case["two_d"]:
+                    res["leaves"] = {n: numpy_of(p) for n, p in lm.named_parameters()}
+                    back = _flat(lm_params_to_reference(cfg, lm))  # every rank gathers
+                    res["round_trip_exact"] = set(back) == set(want) and all(
+                        np.array_equal(back[k], want[k]) for k in want)
+        finally:
+            mesh_lib.SERVE_REPLICATION_SHARE = share
+        out[name] = res
+    return out
+
+
+def decode_without_mesh(ref: dict, case: dict) -> dict:
+    """The port's own ``--mesh none`` run of a decode case's reference
+    tree: prefill logits (``prefill`` cases) and the decode logits."""
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.launch import steps
+
+    cfg = port_config(case)
+    lm = lm_params_from_reference(cfg, tree_of(ref, f"{case['name']}/params/"), device="cpu")
+    out = {}
+    if case["prefill"]:
+        tokens = torch.as_tensor(ref[f"{case['name']}/tokens"])
+        out["prefill"] = numpy_of(steps.make_prefill_step(cfg)(lm, {"tokens": tokens}))
+    out["decode"], _, _ = run_decode(cfg, lm, ref, case)
     return out

@@ -20,6 +20,7 @@
   ``serve.main(["--mesh", "single"])``, whose rank 0 alone prints.
 """
 
+import contextlib
 import dataclasses
 import json
 
@@ -88,7 +89,11 @@ def test_cell_context_overrides_match_reference(monkeypatch, kind, replicated):
                 dataclasses.replace(REF_SHAPES["decode_32k"], kind=kind, global_batch=batch))
             port_cell = mesh_lib.cell_context(
                 port, get_config("qwen3-moe-30b-a3b"), ShapeConfig("c", 64, batch, kind))
-            with ref_cell, port_cell:
+            # a decode cell of weights not replicated adds the rules the
+            # reference's serve_decode_param_shardings cuts its weights by
+            two_d = ref_ctx.use_logical_rules(fsdp=(), tp=("model", "data")) if (
+                kind == "decode" and not replicated) else contextlib.nullcontext()
+            with ref_cell, port_cell, two_d:
                 assert ctx.resolve(*LOGICAL) == _ref_resolve(*LOGICAL), (shape, batch)
             assert ctx.current_mesh() is None
 
@@ -150,7 +155,8 @@ def test_attention_cut_by_heads(shape):
     """4 heads, 2 KV heads of 16: on 4 model ranks one head each and the
     KV head it reads; on 8 half a head's rows of ``wo`` each.  Under the
     default rules (``fsdp`` on ``data``) each dense matrix's ``d_model``
-    dim is also cut over ``data``."""
+    dim is also cut over ``data``.  The decode cache (default rules: rows
+    over ``data``, slots over ``model``) holds every KV head."""
     cfg = get_config("llama3-8b").reduced()
     dp, tp = shape
     for rank in range(8):
@@ -169,7 +175,8 @@ def test_attention_cut_by_heads(shape):
         assert torch.equal(local.layers[0].ffn.w_down,
                            lm.layers[0].ffn.w_down[i * 128 // tp : (i + 1) * 128 // tp, d])
         assert local.layers[0].norm1 is lm.layers[0].norm1  # replicated leaves are shared
-        assert tuple(cache[0].k.shape) == (4 // shape[0], 8, 1, 16)
+        # the cache: rows over data, a block of the 8 slots over model, both KV heads
+        assert tuple(cache[0].k.shape) == (4 // dp, 8 // tp, 2, 16) and cache[0].length == 8
     # a serving cell that replicates the model over data cuts by heads alone
     _, local, _ = _cut(cfg, shape, 0, rules=dict(fsdp=()))
     assert tuple(local.layers[0].mixer.wq.shape) == (64, 16)
