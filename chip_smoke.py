@@ -69,6 +69,14 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    (565 probes, 36 links), its worst link within 0.01 of the CPU's; each
    fit's seconds and losses, and one AdamW step under the profiler (run
    first under ``torch.cuda.set_sync_debug_mode("error")``);
+   meshsig — the mesh-domain link fit: the perturbed 4 x 4 ICI torus (32
+   links, blind) and two hosts of 8 NVLink-switched devices (64 links, one
+   parameter per link class), each from one noisy collective sweep fitted
+   200 steps on the card and on the host CPU: links within rel 1e-3 of
+   the CPU's, the worst within 5% of the truth, one step under the
+   profiler; then ``advise_mesh_shape`` for 8 H100s on one NVLink island
+   and 16 on two, each order equal to the CPU port's committed one, the
+   island's routed step times equal to the scalar model's;
 11. service_resilience — the three records of
    ``benchmarks/serve_resilience.py`` on the card: a 1,000-query chaos
    stream under injected batch stalls and failures, batcher deaths and
@@ -1383,11 +1391,14 @@ def fit_step_profile(machine, samples) -> dict:
     p = {k: getattr(seed, k) for k in C._PARAM_KEYS}
     state = adamw.init(p)
     lr = adamw.cosine_schedule(0.03, 20, CALIBRATION_STEPS)(state.step)
+    return sync_free_step_profile(
+        lambda: C._fit_step(tmpl, groups, sweep, p, state, lr, 0.25, None))
 
-    def step():
-        return C._fit_step(tmpl, groups, sweep, p, state, lr, 0.25, None)
 
-    # a synchronising call anywhere in the step would raise here
+def sync_free_step_profile(step) -> dict:
+    """``step`` run once under ``torch.cuda.set_sync_debug_mode("error")``
+    (a synchronising call anywhere in it would raise), then under the
+    profiler: launches, device ms, busy share."""
     sync()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1455,6 +1466,213 @@ def phase_calibration() -> None:
         check(params_rel <= FIT_VS_CPU_REL,
               f"{m.name}: the card's fit differs from the CPU's by rel {params_rel}")
 
+
+
+# the mesh-domain link fit (tests/test_device_topology.py's round trips):
+# blind 200-step fits, the worst link within 5% of the truth, the card's
+# fitted links within rel 1e-3 of the CPU port's fit of the same samples
+MESH_FIT_STEPS = 200
+MESH_NOISE_STD = 0.01
+ROUTED_VS_SCALAR_REL = 1e-6
+
+
+def perturbed_torus(rows=4, cols=4, base=50e9, spread=0.3, seed=3):
+    """A ``rows x cols`` ICI torus whose links lie within +-30% of
+    ``base``, drawn from a numpy seed."""
+    from repro_torch.core.graphtop import from_fit
+    from repro_torch.core.meshsig.device_topology import DeviceTopology, ici_torus2d
+
+    t = ici_torus2d(rows, cols, base)
+    rng = np.random.default_rng(seed)
+    bw = base * (1 + spread * rng.uniform(-1, 1, t.graph.n_links))
+    return DeviceTopology(graph=from_fit(t.graph, bw), multipath=False)
+
+
+def two_class_template(truth, island_size: int):
+    """``truth``'s structure with one placeholder rate for the links
+    inside an island and another for the glue links, so
+    ``tie_equal_bw`` fits one parameter per class."""
+    from repro_torch.core.graphtop import from_fit
+    from repro_torch.core.meshsig.device_topology import DeviceTopology
+
+    placeholder = [100e9 if i // island_size == j // island_size else 1e9
+                   for i, j in truth.graph.link_ends]
+    return DeviceTopology(graph=from_fit(truth.graph, placeholder))
+
+
+def mesh_fit_cells():
+    """``(name, truth, template, ring-probe axes, fit keywords)`` of the
+    two link fits: the perturbed 4 x 4 torus (32 links) blind, and two
+    hosts of 8 NVLink-switched devices (64 links) with one parameter per
+    link class."""
+    from repro_torch.core.meshsig import calibrate as MC
+    from repro_torch.core.meshsig.device_topology import ring_of_islands
+
+    torus = perturbed_torus()
+    ring = ring_of_islands(2, 8)
+    return (
+        ("torus4x4", torus, MC.blind_template(torus),
+         ({"data": 4, "model": 4}, {"data": 2, "model": 8}), {}),
+        ("ring_of_islands2x8", ring, two_class_template(ring, 8),
+         ({"data": 2, "model": 8}, {"model": 8, "data": 2}), {"tie_equal_bw": True}),
+    )
+
+
+def mesh_fit_step_profile(template, samples, fit_kwargs) -> dict:
+    """One AdamW step (loss, backward, update) of the link fit from its
+    seed, as ``sync_free_step_profile`` reads it."""
+    from repro_torch.core.graphtop import link_groups
+    from repro_torch.core.meshsig import calibrate as MC
+    from repro_torch.optim import adamw
+
+    groups = link_groups(template.graph, **fit_kwargs)
+    index = MC._link_index(groups, samples.device)
+    seed = MC.seed_link_bw(template, samples)
+    p = {"log_bw": torch.log(torch.as_tensor(groups.pack(seed).astype(np.float32),
+                                             device=samples.device))}
+    state = adamw.init(p)
+    lr = adamw.cosine_schedule(0.05, 20, MESH_FIT_STEPS)(state.step)
+
+    return sync_free_step_profile(lambda: MC._fit_step(index, samples, p, state, lr))
+
+
+def h100_chip():
+    """The mesh advisor's roofline constants for one H100 SXM: the
+    datasheet's bf16 and HBM peaks above, NVLink at the device-topology
+    module's switched-island rate."""
+    from repro_torch.core.meshsig.advisor import ChipSpec
+    from repro_torch.core.meshsig.device_topology import NVLINK_BW
+
+    return ChipSpec(name="h100-sxm", peak_flops=BF16_OPS_PER_S, hbm_bw=HBM_BYTES_PER_S,
+                    ici_bw=NVLINK_BW)
+
+
+def synth_profile(axes, *, grad_bytes=1e9, gather_bytes=5e8, a2a_base=2e9):
+    """The reference tests' synthetic profile: the gradient all-reduce and
+    the parameter all-gather on data, the MoE all-to-all on model scaling
+    with 1 / batch shards."""
+    from repro_torch.core.meshsig.fit import MeshProfile, class_factor
+
+    b = axes.get("data", 1) * axes.get("pod", 1)
+    kd, km = axes["data"], axes["model"]
+    return MeshProfile(
+        axis_sizes=dict(axes),
+        class_axis_bytes={
+            ("interleaved", "data"): class_factor("interleaved", kd) * grad_bytes,
+            ("static", "data"): class_factor("static", kd) * gather_bytes,
+            ("per_shard", "model"): class_factor("per_shard", km) * a2a_base / b,
+        },
+        local_bytes=1e10 / b,
+        flops=1e13 / b,
+    )
+
+
+# the ranking cells: advise_mesh_shape for H100s on a fabric (a
+# device_topology function and its arguments) with the signature fitted from
+# synth_profile at (8, 2) and (4, 4), and the (data, model) order, best
+# first, that the port gives on the CPU (tests/test_torch_meshsig.py holds
+# the port and the reference to it); candidates whose step times tie share
+# a set (on two hosts (4, 4)'s data ring and (1, 16)'s model ring both
+# cross the glue: 0.075 s each)
+MESH_RANK_CELLS = (
+    ("nvlink_island", (8,), [{(4, 2)}, {(8, 1)}, {(2, 4)}, {(1, 8)}]),
+    ("ring_of_islands", (2, 8), [{(2, 8)}, {(4, 4), (1, 16)}, {(8, 2)}, {(16, 1)}]),
+)
+TIE_REL = 1e-9
+
+
+def rank_order(rankings) -> list[set]:
+    """The rankings' axis sizes, best first, with candidates whose step
+    times agree within rel ``TIE_REL`` in one set: a tie has no order, and
+    a last bit of the host's sums may break it either way."""
+    out, last = [], None
+    for r in rankings:
+        axes = tuple(r.axis_sizes.values())
+        if last is not None and abs(r.step_s - last) <= TIE_REL * last:
+            out[-1].add(axes)
+        else:
+            out.append({axes})
+        last = r.step_s
+    return out
+
+
+def mesh_rankings(fabric: str, args: tuple, routed: bool = True):
+    """``advise_mesh_shape`` for the cell's H100s, routed over its fabric
+    (or the scalar model with ``routed=False``)."""
+    from repro_torch.core.meshsig import device_topology
+    from repro_torch.core.meshsig.fit import fit_mesh_signature
+    from repro_torch.launch.mesh import advise_mesh_shape
+
+    topology = getattr(device_topology, fabric)(*args)
+    sig = fit_mesh_signature(synth_profile({"data": 8, "model": 2}),
+                             synth_profile({"data": 4, "model": 4}))
+    return advise_mesh_shape(sig, topology.n_devices, chip=h100_chip(),
+                             topology=topology if routed else None)
+
+
+def phase_meshsig() -> None:
+    """The mesh-domain signature on the card: each link fit of
+    ``mesh_fit_cells`` from one noisy sweep (its noise drawn once from a
+    seeded generator on the card) for 200 steps on the card and again on
+    the host CPU, the card's links within rel 1e-3 of the CPU's and the
+    worst within 5% of the truth, its seconds and one step under the
+    profiler; then ``advise_mesh_shape`` for 8 H100s on one NVLink island
+    and 16 on two, each order equal to the committed CPU one, and the
+    island's routed times equal to the scalar model's."""
+    from repro_torch.core.meshsig import calibrate as MC
+
+    for name, truth, template, axes, fit_kwargs in mesh_fit_cells():
+        charges = MC.probe_suite(truth, axis_sizes_list=axes)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        noise = torch.randn((charges.shape[0],), generator=gen, device="cuda")
+        samples = MC.collect_samples(truth, charges, noise_std=MESH_NOISE_STD, noise=noise,
+                                     device="cuda")
+        fits = {}
+        for device in ("cuda", "cpu"):
+            res, seconds = timed(lambda: MC.fit_device_topology(
+                template, samples, steps=MESH_FIT_STEPS, device=device, **fit_kwargs))
+            fits[device] = res
+            fits[device + "_s"] = seconds
+        card, cpu = fits["cuda"], fits["cpu"]
+        vs_cpu = float(np.max(np.abs(card.link_bw - cpu.link_bw) / np.abs(cpu.link_bw)))
+        worst = float(MC.link_relative_errors(card.topology, truth).max())
+        emit("meshsig_fit", topology=name, n_links=truth.graph.n_links,
+             probes=samples.n_samples, params=card.groups.n_params, steps=MESH_FIT_STEPS,
+             noise_std=MESH_NOISE_STD, fit_s=fits["cuda_s"], cpu_fit_s=fits["cpu_s"],
+             seed_loss=card.seed_loss, final_loss=card.final_loss,
+             cpu_final_loss=cpu.final_loss, links_max_rel_vs_cpu=vs_cpu,
+             max_link_error=worst,
+             cpu_max_link_error=float(MC.link_relative_errors(cpu.topology, truth).max()),
+             step_profile=mesh_fit_step_profile(template, samples, fit_kwargs))
+        check(bool(np.isfinite(card.loss_history).all()), f"{name}: non-finite fit losses")
+        check(vs_cpu <= FIT_VS_CPU_REL,
+              f"{name}: the card's links differ from the CPU's by rel {vs_cpu}")
+        check(worst <= LINK_GATE, f"{name}: worst link error {worst} > {LINK_GATE}")
+
+    for fabric, args, want in MESH_RANK_CELLS:
+        name = f"{fabric}{args}"
+        routed = mesh_rankings(fabric, args)
+        scalar = mesh_rankings(fabric, args, routed=False)
+        order = rank_order(routed)
+        record = dict(cell=name, n_devices=int(np.prod(list(routed[0].axis_sizes.values()))),
+                      chip=h100_chip().name,
+                      best=routed[0].axis_sizes, best_bottleneck=routed[0].bottleneck,
+                      rankings=[dict(axes=r.axis_sizes, step_s=r.step_s,
+                                     bottleneck=r.bottleneck, compute_s=r.compute_s,
+                                     memory_s=r.memory_s, collective_s=r.collective_s)
+                                for r in routed],
+                      order=[sorted(g) for g in order],
+                      scalar_order=[sorted(g) for g in rank_order(scalar)])
+        if fabric == "nvlink_island":
+            by_axes = {tuple(r.axis_sizes.items()): r for r in scalar}
+            gap = max(abs(r.step_s / by_axes[tuple(r.axis_sizes.items())].step_s - 1.0)
+                      for r in routed)
+            record["routed_vs_scalar_max_rel"] = gap
+            check(gap <= ROUTED_VS_SCALAR_REL,
+                  f"{name}: routed step times differ from the scalar model's by rel {gap}")
+            check(order == rank_order(scalar), f"{name}: routed order {order}")
+        emit("meshsig_rank", **record)
+        check(order == want, f"{name}: order {order}, the CPU port's {want}")
 
 def percentile_ms(values, q: float):
     return float(np.percentile(values, q)) * 1e3 if len(values) else None
@@ -3559,6 +3777,7 @@ def main() -> int:
     phase_schedule_search()
     phase_service()
     phase_calibration()
+    phase_meshsig()
     phase_service_resilience()
     phase_lm_reduced()
     phase_lm_reduced_train()

@@ -45,7 +45,8 @@ bit-for-bit, which is what the NUMA golden pins ride on.
 
 What a graph's nodes *are* is the embedding domain's business: NUMA
 nodes for hosts (:mod:`repro_torch.core.numa.topology`), devices for
-accelerator meshes (the mesh-domain models, not yet ported).
+accelerator meshes
+(:mod:`repro_torch.core.meshsig.device_topology`).
 """
 
 from __future__ import annotations

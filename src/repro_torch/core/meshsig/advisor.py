@@ -1,5 +1,13 @@
-"""Placement advisor, NUMA domain (port of the NUMA half of
-``repro.core.meshsig.advisor``): given a fitted
+"""Placement advisor in both domains (port of
+``repro.core.meshsig.advisor``).
+
+Mesh domain: given a fitted :class:`~repro_torch.core.meshsig.fit.
+MeshSignature`, rank candidate mesh aspect ratios by predicted step time
+WITHOUT running them (:func:`rank_meshes`): the three roofline terms come
+from the signature's predicted per-axis link bytes, predicted local HBM
+traffic and compute scaling, on the host in Python floats.
+
+NUMA domain: given a fitted
 :class:`~repro_torch.core.bwsig.BandwidthSignature` (2 profiling runs),
 rank candidate thread placements on any machine WITHOUT simulating them
 — one batched tensor pass over the ``(P, s)`` candidates on the
@@ -20,8 +28,98 @@ import numpy as np
 import torch
 
 from repro_torch.core.bwsig import DirectionSignature, placement_matrix
+from repro_torch.core.meshsig.device_topology import DeviceTopology
+from repro_torch.core.meshsig.fit import MeshSignature
 
 _F32 = torch.float32
+
+
+@dataclass(frozen=True)
+class ChipSpec:
+    """Per-chip roofline constants.  Callers pick a preset or build
+    their own."""
+
+    name: str
+    peak_flops: float  # bf16 FLOP/s
+    hbm_bw: float  # bytes/s
+    ici_bw: float  # bytes/s per link (the scalar-model fallback)
+
+
+CHIP_V5E = ChipSpec(name="v5e", peak_flops=197e12, hbm_bw=819e9, ici_bw=50e9)
+CHIP_V5P = ChipSpec(name="v5p", peak_flops=459e12, hbm_bw=2.765e12, ici_bw=100e9)
+
+
+@dataclass
+class MeshRanking:
+    axis_sizes: dict[str, int]
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    per_axis_s: dict[str, float]
+
+    @property
+    def step_s(self) -> float:
+        # collectives overlap compute at best; the bound is the max term
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+
+def rank_meshes(
+    sig: MeshSignature,
+    candidates: list[dict[str, int]],
+    *,
+    chip: ChipSpec = CHIP_V5E,
+    topology: DeviceTopology | None = None,
+    peak_flops: float | None = None,
+    hbm_bw: float | None = None,
+    ici_bw: float | None = None,
+) -> list[MeshRanking]:
+    """Evaluate every candidate mesh; returns rankings sorted by predicted
+    step time (best first).
+
+    With a :class:`DeviceTopology` the collective term routes every axis
+    ring over the physical link graph (per-directed-link charging; a
+    candidate's dict order picks the row-major device embedding), so two
+    candidates with identical axis sizes can rank differently by how they
+    lay onto the fabric.  Without one, each axis's bytes are divided by
+    the chip's scalar ``ici_bw``; the two agree exactly on a
+    fully-connected uniform-bandwidth topology.  The ``peak_flops`` /
+    ``hbm_bw`` / ``ici_bw`` keywords override the chip's values."""
+    peak_flops = chip.peak_flops if peak_flops is None else peak_flops
+    hbm_bw = chip.hbm_bw if hbm_bw is None else hbm_bw
+    ici_bw = chip.ici_bw if ici_bw is None else ici_bw
+    out = []
+    for axes in candidates:
+        b = axes.get("data", 1) * axes.get("pod", 1)
+        flops = sig.flops0 * sig.batch_shards0 / b  # per-device compute
+        per_axis_bytes = sig.predict_axis_bytes(axes)
+        if topology is None:
+            per_axis_s = {a: v / ici_bw for a, v in per_axis_bytes.items()}
+        else:
+            per_axis_s = topology.per_axis_times(axes, per_axis_bytes)
+        out.append(
+            MeshRanking(
+                axis_sizes=axes,
+                compute_s=flops / peak_flops,
+                memory_s=sig.predict_local_bytes(axes) / hbm_bw,
+                collective_s=max(per_axis_s.values(), default=0.0),
+                per_axis_s=per_axis_s,
+            )
+        )
+    return sorted(out, key=lambda r: r.step_s)
+
+
+# ---------------------------------------------------------------------------
+# NUMA domain: rank thread placements from a fitted signature
+# ---------------------------------------------------------------------------
 
 
 @dataclass

@@ -47,7 +47,9 @@ A training state (the parameter tree and AdamW's moments) is cut and
 gathered leaf by leaf in the same way (:func:`shard_state`,
 :func:`gather_state`), so a whole state moves to any mesh
 (``runtime.fault_tolerance.remesh``).
-``advise_mesh_shape`` waits for ``rank_meshes`` (ROADMAP §1 P13).
+
+:func:`advise_mesh_shape` ranks every 2-axis factorization of a device
+count by predicted step time, through the advisor's ``rank_meshes``.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.meshsig.advisor import CHIP_V5E, rank_meshes
 from repro_torch.models.attention import KVCache, projection_columns
 from repro_torch.models.layers import weight
 from repro_torch.models.mamba import MambaCache
@@ -118,6 +121,29 @@ def candidate_mesh_axes(
             f"[{min_model}, {max_model}]"
         )
     return out
+
+
+def advise_mesh_shape(
+    sig,
+    n_devices: int,
+    *,
+    chip=None,
+    topology=None,
+    axis_names: tuple[str, str] = ("data", "model"),
+    min_model: int = 1,
+    max_model: int | None = None,
+):
+    """Rank every 2-axis mesh factorization of ``n_devices`` by predicted
+    step time through the advisor: the scalar roofline by default, the
+    routed per-link model when a
+    :class:`~repro_torch.core.meshsig.device_topology.DeviceTopology` is
+    given.  ``chip`` defaults to ``CHIP_V5E``, as in the reference.
+    Returns the advisor's sorted ``MeshRanking`` list (best first)."""
+    candidates = candidate_mesh_axes(
+        n_devices, axis_names=axis_names, min_model=min_model,
+        max_model=max_model,
+    )
+    return rank_meshes(sig, candidates, chip=chip or CHIP_V5E, topology=topology)
 
 
 def card_bytes() -> int:

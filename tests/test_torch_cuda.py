@@ -3,9 +3,9 @@ kernels, forward and backward, against their plain versions, a training
 step of the reduced LMs on the card against the CPU, and the sweep, the placement
 search, the scheduler, the service's tiers, the reduced LMs' prefill
 (attention, mamba and MoE layers), the mamba decode step, the MoE
-dispatch, the calibration's paired batch, loss gradient and fit, and a
-hot-swap of the service on the card against the same port code on the
-CPU.  Every test here is marked ``gpu`` and skips without a card; this
+dispatch, the calibration's paired batch, loss gradient and fit, the
+mesh-domain link fit, and a hot-swap of the service on the card against
+the same port code on the CPU.  Every test here is marked ``gpu`` and skips without a card; this
 file imports neither JAX nor the JAX package, so it runs where only
 torch is installed:
 
@@ -680,6 +680,41 @@ def test_fit_loop_makes_no_host_sync(cuda):
     assert history.device.type == "cuda" and history.shape == (5,)
     assert torch.isfinite(history).all() and torch.isfinite(final_loss)
 
+
+
+def test_mesh_link_fit_on_the_card_matches_cpu(cuda):
+    """The mesh-domain link fit: a 4 x 4 torus with links within +-30% of
+    50 GB/s, one noisy sweep (draws from a seeded generator on the card),
+    fitted blind for 200 steps on the card and on the CPU from the same
+    samples: every link at rel 1e-3 of the CPU's, the worst within 5% of
+    the truth; the step loop makes no host sync."""
+    from repro_torch.core.graphtop import from_fit, link_groups
+    from repro_torch.core.meshsig import calibrate as MC
+    from repro_torch.core.meshsig.device_topology import DeviceTopology, ici_torus2d
+
+    torus = ici_torus2d(4, 4, 50e9)
+    bw = 50e9 * (1 + 0.3 * np.random.default_rng(3).uniform(-1, 1, torus.graph.n_links))
+    truth = DeviceTopology(graph=from_fit(torus.graph, bw))
+    charges = MC.probe_suite(truth, axis_sizes_list=[{"data": 4, "model": 4}])
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    samples = MC.collect_samples(truth, charges, noise_std=0.01, generator=gen, device=cuda)
+    tmpl = MC.blind_template(truth)
+    card = MC.fit_device_topology(tmpl, samples, device=cuda)
+    cpu = MC.fit_device_topology(tmpl, samples, device="cpu")
+    np.testing.assert_allclose(card.link_bw, cpu.link_bw, rtol=1e-3)
+    assert np.isfinite(card.loss_history).all() and card.loss_history.shape == (200,)
+    assert float(MC.link_relative_errors(card.topology, truth).max()) < 0.05
+
+    index = MC._link_index(link_groups(tmpl.graph), cuda)
+    log_bw = torch.log(torch.as_tensor(MC.seed_link_bw(tmpl, samples), device=cuda).float())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, history, final_loss = MC._fit_loop(index, samples, log_bw, 5, 0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert history.device.type == "cuda" and history.shape == (5,)
+    assert torch.isfinite(history).all() and torch.isfinite(final_loss)
 
 def test_swap_on_the_card_matches_cpu(cuda):
     """A recalibrated spec swapped in on the card: epoch 1, a warmed table,

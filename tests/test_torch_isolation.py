@@ -43,6 +43,10 @@ def test_every_module_imports_without_jax_or_repro():
         "repro_torch.core.numa.search",
         "repro_torch.core.numa.temporal",
         "repro_torch.core.meshsig.advisor",
+        "repro_torch.core.meshsig.device_topology",
+        "repro_torch.core.meshsig.counters",
+        "repro_torch.core.meshsig.fit",
+        "repro_torch.core.meshsig.calibrate",
         "repro_torch.core.numa.calibrate",
         "repro_torch.serve.faults",
         "repro_torch.serve.recalibrate",
@@ -117,6 +121,8 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     from repro_torch.core.numa.benchmarks import benchmark_workload
     from repro_torch.core.numa.evaluate import enumerate_placements, evaluate_suite
     from repro_torch.configs.base import get_config
+    from repro_torch.core.meshsig import calibrate as mesh_cal
+    from repro_torch.core.meshsig.device_topology import nvlink_island
     from repro_torch.data.pipeline import TokenStream, synthetic_batch
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
@@ -125,6 +131,9 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     cfg = get_config("llama3-8b").reduced()
     cpu_params = M.init_params(cfg, torch.Generator(), device="cpu")
     prompts = torch.zeros((1, 4), dtype=torch.int32)
+    island = nvlink_island(4)
+    charges = mesh_cal.probe_suite(island)
+    cpu_samples = mesh_cal.collect_samples(island, charges, device="cpu")
     assert repro_torch.DEFAULT_DEVICE == "cuda"
     calls = [
         lambda: repro_torch.resolve_device(),
@@ -138,6 +147,9 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
         lambda: probe_suite(E5_2630_V3),
         lambda: collect_sweep(E5_2630_V3),
         lambda: fit_from_simulated(E5_2630_V3, steps=1),
+        lambda: mesh_cal.collect_samples(island, charges),
+        lambda: mesh_cal.fit_device_topology(island, cpu_samples, steps=1),
+        lambda: mesh_cal.fit_from_synthetic(island, steps=1),
         lambda: M.init_params(cfg, torch.Generator()),
         lambda: M.init_cache(cfg, 1, 8, torch.bfloat16),
         lambda: generate(cfg, cpu_params, prompts, 6, 2),
@@ -150,10 +162,14 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
 
 
 def test_cpu_runs_only_on_request(no_cuda):
+    from repro_torch.core.meshsig.calibrate import fit_from_synthetic
+    from repro_torch.core.meshsig.device_topology import nvlink_island
     from repro_torch.core.numa import mixed_workload
 
     wl = mixed_workload("w", 4, device="cpu")
     assert wl.device == torch.device("cpu")
+    fit = fit_from_synthetic(nvlink_island(4), steps=2, device="cpu")
+    assert fit.loss_history.shape == (2,)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
