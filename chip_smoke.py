@@ -166,7 +166,18 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    time beside the no-mesh step's; lm_falcon_mamba_train's first step
    through the mesh code (K2's backward 8 times, the loss and gradient
    norm bit-equal);
-   ``compressed_psum_mean`` at one rank returning its input.
+   ``compressed_psum_mean`` at one rank returning its input;
+19. dryrun — the counter source, the dry run and the mesh-signature
+   validation: ``run_validation`` of llama3-8b's ``train_4k`` on ``meta``
+   over the five meshes of 256 ranks (class fractions, each mesh's
+   errors, the median and largest, the advisor's and the measured
+   orders; the fit giving back its two runs' model-axis link bytes to
+   1e-6 of their totals); llama3-8b's prefill (4 x 2,048) and
+   h2o-danube-1.8b's train step (4 x 2,048, accum 2) counted on the card
+   (``"observe"``) and on ``meta`` at one rank: FLOPs equal, argument
+   bytes equal, the predicted peak within 10% of the card's, danube's
+   FLOPs within 1% of its operations count, no collective; every arch's
+   ``prefill_32k`` and ``decode_32k`` dry-run cells on the 16 x 16 mesh.
 
 Every profile whose kernel has a launch counter is held to it
 (``watched_complete``).  Then one line listing every kernel of the port
@@ -196,6 +207,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# the kernels' own work rules, which the counter source uses too (fails
+# outside a checkout of the repository)
+from repro_torch.kernels.flash_attention.kernel import attention_pairs  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_work as k1_work  # noqa: E402
+from repro_torch.kernels.mamba_scan.kernel import scan_bwd_work, scan_work  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA's H100 datasheet): HBM bytes/s,
 # float32 (no tensor core) and dense bf16 tensor-core operations/s
@@ -510,8 +527,8 @@ def phase_selective_scan() -> dict:
         plain_ms = cuda_ms(lambda: selective_scan_ref(dt, a, b, c, x), 2)
 
         elems = B * S * di
-        bytes_moved = 4 * (3 * elems + 2 * B * S * n + di * n)  # dt, x, y, b, c, a
-        ops = 7 * elems * n + elems  # per (b,t,d,n): dt*a, exp, *h, *b, +, *c, +
+        # per (b,t,d,n): dt*a, exp, *h, *b, +, *c, +; dt, x, y, b, c and a moved
+        ops, bytes_moved = scan_work(B, S, di, n)
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         exp_ms = elems * n / (sms * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
@@ -555,22 +572,12 @@ def phase_selective_scan() -> dict:
     return row
 
 
-def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """The (row, col) pairs one (batch, head) of attention must compute:
-    those its mask leaves visible (right-aligned rows)."""
-    rows = np.arange(sq) + (skv - sq)
-    hi = np.minimum(rows + 1, skv) if causal else np.full(sq, skv)
-    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.clip(hi - lo, 0, None).sum())
-
-
 def flash_work(q, k, causal: bool, window: int) -> tuple[int, float, float]:
     """``(ops, bytes_ms, ops_ms)`` of one attention call: 4 * dh
     operations per visible (row, col) pair (QK^T and PV) at the peak rate
-    of the inputs' type, against q, k, v read once and o written once."""
-    B, H, sq, dh = q.shape
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops = 4 * dh * B * H * attention_pairs(sq, k.shape[2], causal, window)
+    of the inputs' type, against q, k, v read once and o written once
+    (the kernel's own rule, ``kernel.flash_work``)."""
+    ops, moved = k1_work(q, k, causal=causal, window=window)
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
     return ops, moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
@@ -971,8 +978,9 @@ def phase_flash_attention_backward() -> dict:
 def scan_bwd_bytes(B: int, S: int, di: int, n: int) -> int:
     """The bytes K2's backward must move as a function: dt, x and dy read
     and ddt and dx written (B, S, di); B and C read and dB and dC written
-    (B, S, N); A read and dA written (di, N); all float32."""
-    return 4 * (5 * B * S * di + 4 * B * S * n + 2 * di * n)
+    (B, S, N); A read and dA written (di, N); all float32
+    (``kernel.scan_bwd_work``)."""
+    return int(scan_bwd_work(B, S, di, n)[1])
 
 
 def scan_bwd_design_bytes(B: int, S: int, di: int, n: int) -> int:
@@ -1038,7 +1046,7 @@ def phase_selective_scan_backward() -> dict:
         design_bytes = scan_bwd_design_bytes(B, S, di, n)
         # per (b, t, d, n): 4 in the recomputed forward step, 22 in the
         # reverse step (the function's arithmetic, as PR 18 counted it)
-        ops = 26 * elems * n
+        ops = scan_bwd_work(B, S, di, n)[0]
         bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         exp_ms = elems * n / (sms * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
@@ -3751,6 +3759,142 @@ def phase_lm_mesh_train(danube: dict, falcon: dict) -> None:
         store.unlink(missing_ok=True)
 
 
+DRYRUN_CELLS = (
+    # label, arch, the cell: lm_serve_prefill's and lm_danube_train's
+    ("llama3-8b prefill", "llama3-8b", ("p", 2048, 4, "prefill")),
+    ("h2o-danube-1.8b train", "h2o-danube-1.8b", ("t", 2048, 4, "train")),
+)
+# The meta run's predicted peak against the card's: the gaps read on the
+# H100 were 3.0e-8 (llama3-8b prefill) and 6.5e-3 (danube's train step).
+PEAK_REL = 0.02
+# The caching allocator rounds a block up to 512 bytes; a block over 1 MiB
+# comes from the large pool and keeps a remainder of up to 1 MiB unsplit.
+ALLOCATOR_BLOCK, ALLOCATOR_SMALL = 512, 1 << 20
+
+
+def phase_dryrun() -> None:
+    """The counter source (``core.meshsig.counters.count_program``), the
+    dry run and the mesh-signature validation on the card host: (a)
+    ``run_validation`` for llama3-8b's ``train_4k`` on ``meta`` (five
+    meshes of up to 256 ranks, each rank 0 of a layout-only mesh), the
+    fitted signature giving back its two runs' model-axis link bytes to
+    1e-6 of their totals; (b) one rank on the card against ``meta``:
+    ``DRYRUN_CELLS`` built on the card and counted in ``"observe"`` mode,
+    then built on ``meta`` and simulated, at a (1, 1) mesh: FLOPs equal,
+    argument bytes equal, the allocator's live bytes after the build
+    those of the arguments' blocks (up to each large block's unsplit
+    remainder), the predicted peak within ``PEAK_REL`` of the card's peak
+    allocation around the call, danube's FLOPs within 1% of
+    ``train_step_ops``, no collective; (c) the dry run
+    of every arch's ``prefill_32k`` and ``decode_32k`` cells as rank 0 of
+    the 16 x 16 mesh, each ``ok``, its per-rank peak beside the card's
+    memory.  K2's layout constants that ``meta`` allocates by are held
+    against the built libraries first."""
+    from repro_torch.configs.base import ShapeConfig, get_config, list_configs
+    from repro_torch.core.meshsig.counters import _storages, count_program
+    from repro_torch.core.meshsig.validate import run_validation
+    from repro_torch.kernels.mamba_scan import kernel as k2
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import context as ctx
+
+    t_start = time.perf_counter()
+    for n in k2.STATE_WIDTHS:
+        check(k2.tiles(n)["time_chunk"] == k2.TIME_CHUNK, f"K2 forward's chunk at N = {n}")
+        for di in (96, 8192):
+            want = {"time_chunk": k2.TIME_CHUNK, "slices": k2.bwd_slices(di, n)}
+            check(k2.bwd_layout(di, n) == want, f"K2 backward's layout at ({di}, {n})")
+
+    # (a) the validation at full size
+    t0 = time.perf_counter()
+    rec = run_validation("llama3-8b", "train_4k", chip=h100_chip())
+    validation_s = time.perf_counter() - t0
+    refused = {k: m["error"] for k, m in rec["meshes"].items() if "error" in m}
+    fit_gaps = {}
+    for name, c in rec["fit_meshes_check"].items():
+        total = sum(c["measured_axis_bytes"].values())
+        fit_gaps[name] = {a: abs(c["predicted_axis_bytes"][a] - m) / total
+                          for a, m in c["measured_axis_bytes"].items()}
+    emit("dryrun_validation", arch=rec["arch"], shape=rec["shape"],
+         class_fractions=rec["class_fractions"],
+         errors_pct_of_total={k: m.get("error_pct_of_total", m.get("error"))
+                              for k, m in rec["meshes"].items()},
+         median_error_pct=rec["median_error_pct"], max_error_pct=rec["max_error_pct"],
+         advisor_order=rec["advisor_order"], measured_order=rec["measured_order"],
+         fit_meshes_rel_gap=fit_gaps, fit_profile_s=rec["fit_compile_s"],
+         mesh_profile_s={k: m.get("compile_s") for k, m in rec["meshes"].items()},
+         seconds=validation_s)
+    check(not refused and len(rec["meshes"]) == 3, f"validation meshes refused: {refused}")
+    check(np.isfinite(rec["median_error_pct"]), "the validation's median error is not finite")
+    check(all(g["model"] <= 1e-6 for g in fit_gaps.values()),
+          f"the fit does not give back its runs' model-axis link bytes: {fit_gaps}")
+
+    # (b) one rank on the card against meta
+    mesh = ctx.Mesh(("data", "model"), (1, 1), 0)
+    for label, arch, cell in DRYRUN_CELLS:
+        cfg, shape = get_config(arch), ShapeConfig(*cell)
+        base = free_card() * 1e9
+        with mesh_lib.cell_context(mesh, cfg, shape):
+            fn, args, meta = dryrun.build_cell(cfg, shape, device="cuda")
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated() - base
+            t0 = time.perf_counter()
+            card = count_program(fn, *args, mode="observe")
+            sync()
+            card_s = time.perf_counter() - t0
+            card_peak = torch.cuda.max_memory_allocated() - base
+        arg_sizes = _storages(args, {}).values()
+        arg_blocks = sum(-(-n // ALLOCATOR_BLOCK) * ALLOCATOR_BLOCK for n in arg_sizes)
+        unsplit = ALLOCATOR_SMALL * sum(n > ALLOCATOR_SMALL for n in arg_sizes)
+        del fn, args
+        free_card()
+        sim, sim_meta = dryrun.profile_cell(cfg, shape, mesh)
+        predicted = sim.memory["argument_size_in_bytes"] + sim.memory["temp_size_in_bytes"]
+        peak_gap = abs(predicted - card_peak) / card_peak
+        ops = train_step_ops(cfg, shape.global_batch, shape.seq_len) \
+            if shape.kind == "train" else None
+        emit("dryrun_one_rank", cell=label, accum=meta.get("accum"),
+             card_flops=card.flops, meta_flops=sim.flops, train_step_ops=ops,
+             card_hbm_bytes=card.hbm_bytes, meta_hbm_bytes=sim.hbm_bytes,
+             card_kernels=card.kernels, meta_kernels=sim.kernels,
+             card_memory=card.memory, meta_memory=sim.memory, card_live_bytes=live,
+             card_arg_blocks_bytes=arg_blocks, card_live_beyond_arg_blocks=live - arg_blocks,
+             card_unsplit_limit_bytes=unsplit,
+             card_peak_bytes=card_peak, predicted_peak_bytes=predicted,
+             peak_rel_gap=peak_gap, card_collectives=len(card.collectives),
+             meta_collectives=len(sim.collectives), card_profile_s=card_s,
+             meta_profile_s=sim.seconds)
+        check(card.flops == sim.flops, f"{label}: card FLOPs {card.flops}, meta {sim.flops}")
+        check(sim.memory["argument_size_in_bytes"] == card.memory["argument_size_in_bytes"],
+              f"{label}: argument bytes {sim.memory} against the card's {card.memory}")
+        check(arg_blocks <= live <= arg_blocks + unsplit,
+              f"{label}: the allocator holds {live} bytes after the build, the arguments' "
+              f"blocks {arg_blocks} (+ up to {unsplit} unsplit)")
+        check(peak_gap <= PEAK_REL, f"{label}: predicted peak {predicted} against the card's "
+                                    f"{card_peak} (rel {peak_gap})")
+        check(not card.collectives and not sim.collectives, f"{label}: collectives at one rank")
+        if ops is not None:
+            check(abs(sim.flops - ops) <= 0.01 * ops,
+                  f"{label}: {sim.flops} FLOPs against train_step_ops' {ops}")
+
+    # (c) the dry run's prefill and decode cells on the 16 x 16 mesh
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    cells = {}
+    for arch in list_configs():
+        for shape_name in ("prefill_32k", "decode_32k"):
+            r = dryrun.run_cell(arch, shape_name, "single", out_dir=out_dir, force=True)
+            check(r["status"] == "ok", f"dry run {arch} {shape_name}: {r.get('error')}")
+            cells[f"{arch} {shape_name}"] = dict(
+                flops=r["flops"], link_bytes=r["collectives"]["link_bytes_total"],
+                peak_bytes=dryrun.peak_bytes(r), share_of_card=dryrun.peak_bytes(r) / card_bytes,
+                profile_s=r["profile_s"])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("dryrun", mesh="single 16 x 16, rank 0", card_bytes=card_bytes, cells=cells,
+         nvidia_smi=nvidia_smi("name,power.limit"), phase_s=time.perf_counter() - t_start)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3800,6 +3944,7 @@ def main() -> int:
     scan_bwd_row["launches"] = falcon["counts"]["k2_bwd"]  # one falcon (8 layers) step
     phase_lm_mesh()  # runs phase_lm_qwen3_moe once its long decode caches are freed
     phase_lm_mesh_train(danube, falcon)
+    phase_dryrun()
     print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -189,6 +189,21 @@ class ModelConfig:
         total += self.d_model  # final norm
         return total
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the top-k experts;
+        enc-dec: encoder and cross-attention fully active)."""
+        total = self.padded_vocab * self.d_model
+        if not self.tie_embeddings:
+            total += self.padded_vocab * self.d_model
+        for layer in range(self.n_layers):
+            total += self._layer_params(layer, active_only=True)
+        if self.is_encoder_decoder:
+            for _ in range(self.encoder_layers):
+                total += self._attn_params() + self._dense_ffn_params() + 2 * self.d_model
+            total += self.n_layers * (self._attn_params() + self.d_model)  # cross
+        total += self.d_model
+        return total
+
     def _attn_params(self) -> int:
         hd = self.head_dim
         return (
@@ -200,8 +215,9 @@ class ModelConfig:
     def _dense_ffn_params(self) -> int:
         return 3 * self.d_model * self.d_ff  # SwiGLU
 
-    def _moe_ffn_params(self) -> int:
-        return self.n_experts * 3 * self.d_model * self.d_ff + self.d_model * self.n_experts
+    def _moe_ffn_params(self, active_only: bool = False) -> int:
+        e = self.experts_per_token if active_only else self.n_experts
+        return e * 3 * self.d_model * self.d_ff + self.d_model * self.n_experts
 
     def _mamba_params(self) -> int:
         di, n, dtr = self.d_inner, self.ssm_state, self.dt_rank_actual
@@ -214,14 +230,14 @@ class ModelConfig:
             + di * self.d_model  # out_proj
         )
 
-    def _layer_params(self, layer: int) -> int:
+    def _layer_params(self, layer: int, active_only: bool = False) -> int:
         total = 2 * self.d_model  # norms
         if self.mixer_kind(layer) == "attn":
             total += self._attn_params()
         else:
             total += self._mamba_params()
         if self.ffn_kind(layer) == "moe":
-            total += self._moe_ffn_params()
+            total += self._moe_ffn_params(active_only)
         else:
             total += self._dense_ffn_params()
         return total
@@ -300,3 +316,16 @@ def _ensure_loaded() -> None:
         whisper_medium,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Cell applicability
+# ---------------------------------------------------------------------------
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch x shape) dry-run cell runs, and why not if
+    skipped: the 500k-token decode needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.long_context_ok:
+        return False, "pure full-attention arch: 500k decode needs sub-quadratic attention"
+    return True, ""

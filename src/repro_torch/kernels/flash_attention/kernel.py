@@ -37,13 +37,23 @@ serving passes none.  The backward, too, has two kernels chosen by dtype
 
 ``flash_attention_bwd.launches`` counts its calls, each of which launches
 three kernels (D = rowsum(dO O), dK and dV, dQ).
+
+On ``meta`` tensors both wrappers allocate what the card's branch would
+allocate and compute nothing (a counted ``meta`` run,
+``core.meshsig.counters``).  Under a recording
+(``parallel.context.record``) each call, on any device, adds its work:
+4 dh operations per visible (row, column) pair (:func:`attention_pairs`)
+forward and 2.5 times that backward, and its operands' and results'
+bytes (:func:`flash_work`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -52,6 +62,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_lse_ref,
     attention_ref,
 )
+from repro_torch.parallel import context
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
@@ -64,6 +75,41 @@ BWD_SOURCES = {
 }
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # dh values every kernel takes
 _TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
+
+
+@functools.lru_cache(maxsize=256)
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (row, col) pairs one (batch, head) of attention must compute:
+    those its mask leaves visible (right-aligned rows)."""
+    rows = np.arange(sq) + (skv - sq)
+    hi = np.minimum(rows + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int,
+               lse: bool = False, backward: bool = False) -> tuple[float, float]:
+    """``(operations, bytes)`` of one call on ``q`` (B, H, Sq, dh) and
+    ``k`` (B, Kv, Skv, dh): 4 dh operations per visible pair (QK^T and
+    PV), 2.5 times that for the backward; the forward reads q, k and v
+    and writes o (and, with ``lse``, the float32 log-sum-exp), the
+    backward reads q, k, v, o, dO and the log-sum-exp and writes dq, dk
+    and dv."""
+    B, H, sq, dh = q.shape
+    ops = 4 * dh * B * H * attention_pairs(sq, k.shape[2], causal, window)
+    qb, kb, lse_b = q.numel() * q.element_size(), k.numel() * k.element_size(), 4 * B * H * sq
+    if backward:
+        return 2.5 * ops, 4 * qb + 4 * kb + lse_b
+    return float(ops), 2 * qb + 2 * kb + (lse_b if lse else 0)
+
+
+def _check_layout(tensors: dict, dh: int) -> None:
+    """What every kernel of a device branch needs of its operands."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} has no kernel instantiation {HEAD_DIMS}")
+    for name, t in tensors.items():
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must have a contiguous head dim")
 
 
 def _library(dtype: torch.dtype) -> ctypes.CDLL:
@@ -147,23 +193,29 @@ def flash_attention(
         or not lse.is_contiguous()
     ):
         raise ValueError(f"lse must be contiguous float32 {tuple(q.shape[:3])} on {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not {q.device}")
+    work = functools.partial(flash_work, q, k, causal=causal, window=window, lse=lse is not None)
+    with context.kernel_work("flash_attention", work):
+        return _flash_attention(q, k, v, causal, window, logit_cap, out, lse)
+
+
+def _flash_attention(q, k, v, causal, window, logit_cap, out, lse) -> torch.Tensor:
+    """:func:`flash_attention`'s body on q's device."""
     if q.device.type == "cpu":
         result = attention_ref(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
         if lse is not None:
             lse.copy_(attention_lse_ref(q, k, causal=causal, window=window, logit_cap=logit_cap))
         return result if out is None else out.copy_(result)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, Sq, dh = q.shape
     Kv, Skv = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} has no kernel instantiation {HEAD_DIMS}")
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must have a contiguous head dim")
-        if q.dtype == torch.bfloat16:
+    _check_layout({"q": q, "k": k, "v": v, "out": out}, dh)
+    if q.device.type == "meta":
+        return out
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
             _check_tma(name, t)
     lib = _library(q.dtype)
     with torch.cuda.device(q.device):
@@ -206,18 +258,23 @@ def flash_attention_bwd(
     _check(q, k, v, out)
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} on {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention_bwd runs on cpu, cuda or meta, not {q.device}")
+    work = functools.partial(flash_work, q, k, causal=causal, window=window, backward=True)
+    with context.kernel_work("flash_attention_bwd", work):
+        return _flash_attention_bwd(q, k, v, out, dout, lse, causal, window, logit_cap, grads)
+
+
+def _flash_attention_bwd(q, k, v, out, dout, lse, causal, window, logit_cap, grads):
+    """:func:`flash_attention_bwd`'s body on q's device."""
     if q.device.type == "cpu":
         result = attention_bwd_ref(q, k, v, dout, causal=causal, window=window,
                                    logit_cap=logit_cap)
         if grads is None:
             return result
         return tuple(g.copy_(r) for g, r in zip(grads, result))
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not {q.device}")
     B, H, Sq, dh = q.shape
     Kv, Skv = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} has no kernel instantiation {HEAD_DIMS}")
     if lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("the CUDA backward needs the forward's contiguous float32 lse")
@@ -228,12 +285,13 @@ def flash_attention_bwd(
         if g.shape != want.shape or g.dtype != q.dtype or g.device != q.device:
             raise ValueError(f"gradient buffer {tuple(g.shape)} {g.dtype} does not fit")
     tensors = (q, k, v, out, dout, *grads)
-    for name, t in zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"), tensors):
-        if t.stride(3) != 1:
-            raise ValueError("every operand of the backward must have a contiguous head dim")
-        if q.dtype == torch.bfloat16:
-            _check_tma(name, t)
+    _check_layout(dict(zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"), tensors)), dh)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return grads
+    if q.dtype == torch.bfloat16:
+        for name, t in zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"), tensors):
+            _check_tma(name, t)
     ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
     lib = _bwd_library(q.dtype)

@@ -8,7 +8,9 @@ When an input requires a gradient it runs as a ``torch.autograd.Function``:
 the forward also keeps the float32 log-sum-exp, and the backward is the
 backward kernel (:func:`~repro_torch.kernels.flash_attention.kernel.
 flash_attention_bwd`) on a card, the plain backward on the CPU; the
-gradients come back in the inputs' dtypes."""
+gradients come back in the inputs' dtypes.  The backward counts into the
+recording its forward ran under (``parallel.context.record``), whichever
+thread autograd runs it on."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention,
     flash_attention_bwd,
 )
+from repro_torch.parallel import context
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +40,7 @@ class _FlashAttention(torch.autograd.Function):
                         logit_cap=logit_cap, out=_t(out), lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.options = dict(causal=causal, window=window, logit_cap=logit_cap)
+        ctx.recording = context.current_recording()  # the backward's, on any thread
         return out
 
     @staticmethod
@@ -48,8 +52,9 @@ class _FlashAttention(torch.autograd.Function):
         if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16 and not _tma_aligned(_t(dout))):
             dout = dout.clone(memory_format=torch.contiguous_format)
         grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-        flash_attention_bwd(_t(q), _t(k), _t(v), _t(out), _t(dout), lse,
-                            grads=tuple(_t(g) for g in grads), **ctx.options)
+        with context.recording_as(ctx.recording):
+            flash_attention_bwd(_t(q), _t(k), _t(v), _t(out), _t(dout), lse,
+                                grads=tuple(_t(g) for g in grads), **ctx.options)
         return (*grads, None, None, None)
 
 

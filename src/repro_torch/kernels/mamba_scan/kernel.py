@@ -22,21 +22,62 @@ recomputes each chunk's states from the saved one and runs the reverse
 recurrence, writing ddt and dx whole and dA, dB and dC as partials that
 this wrapper sums in a fixed order (no atomics anywhere, so two calls give
 equal bits).  ``selective_scan_bwd.launches`` counts its launches.
+
+On ``meta`` tensors both wrappers allocate what the card's branch would
+allocate (the states and partials at the layout :data:`TIME_CHUNK` and
+:func:`bwd_slices` give, the sources' own constants) and compute nothing.
+Under a recording (``parallel.context.record``) each call, on any
+device, adds the work of its bound (:func:`scan_work`,
+:func:`scan_bwd_work`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref, selective_scan_ref
+from repro_torch.parallel import context
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 BWD_SOURCE = SOURCE.with_name("selective_scan_bwd.cu")
 STATE_WIDTHS = (4, 8, 16)  # d_state values the kernel is instantiated for
+# Time steps between the states the forward saves (both sources' kChunk;
+# ``tiles`` and ``bwd_layout`` read it from the built libraries).
+TIME_CHUNK = 16
+
+
+def bwd_slices(d_inner: int, d_state: int) -> int:
+    """The backward's dB / dC partial slices, one per 32 channels of
+    every block of ``512 / d_state`` channels (the source's
+    ``Tile<N>::kChannels``; ``bwd_layout`` reads it from the library)."""
+    channels = 512 // d_state
+    return -(-d_inner // channels) * (channels // 32)
+
+
+def scan_work(B: int, S: int, di: int, n: int, *, states: bool = False) -> tuple[float, float]:
+    """``(operations, bytes)`` of one forward call: 7 operations per (b,
+    t, d, n) (dt a, exp, times h, times b, add, times c, add) and one per
+    (b, t, d); dt, x, b, c and a read and y written in float32 (and the
+    saved chunk states, with ``states``)."""
+    elems = B * S * di
+    nbytes = 4 * (3 * elems + 2 * B * S * n + di * n)
+    if states:
+        nbytes += 4 * B * -(-S // TIME_CHUNK) * di * n
+    return float(7 * elems * n + elems), float(nbytes)
+
+
+def scan_bwd_work(B: int, S: int, di: int, n: int) -> tuple[float, float]:
+    """``(operations, bytes)`` of one backward call as a function: 26
+    operations per (b, t, d, n) (4 in the recomputed forward step, 22 in
+    the reverse step); dt, x and dy read and ddt and dx written (B, S,
+    di), b and c read and db and dc written (B, S, N), a read and da
+    written (di, N), float32."""
+    return float(26 * B * S * di * n), float(4 * (5 * B * S * di + 4 * B * S * n + 2 * di * n))
 
 
 def _library() -> ctypes.CDLL:
@@ -129,19 +170,29 @@ def selective_scan(
     :func:`selective_scan_bwd` takes; on the CPU ``None`` (the plain
     backward recomputes every state)."""
     B, S, di, n = _check(dt, a, b, c, x)
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"selective_scan runs on cpu, cuda or meta, not {x.device}")
+    work = functools.partial(scan_work, B, S, di, n, states=save_states)
+    with context.kernel_work("selective_scan", work):
+        return _selective_scan(dt, a, b, c, x, save_states)
+
+
+def _selective_scan(dt, a, b, c, x, save_states: bool):
+    """:func:`selective_scan`'s body on x's device."""
+    B, S, di, n = x.shape + a.shape[1:]
     if x.device.type == "cpu":
         y = selective_scan_ref(dt, a, b, c, x)[0]
         return (y, None) if save_states else y
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, not {x.device}")
     if n not in STATE_WIDTHS:
         raise ValueError(f"d_state {n} has no kernel instantiation {STATE_WIDTHS}")
-    lib = _library()
     y = torch.empty_like(x)
     states = None
     if save_states:
-        chunk = tiles(n)["time_chunk"]
+        chunk = TIME_CHUNK if x.device.type == "meta" else tiles(n)["time_chunk"]
         states = torch.empty((B, -(-S // chunk), di, n), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return (y, states) if save_states else y
+    lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.selective_scan_fwd_f32(
@@ -175,36 +226,46 @@ def selective_scan_bwd(
     if dy.shape != x.shape or dy.dtype != torch.float32 or dy.device != x.device \
             or not dy.is_contiguous():
         raise ValueError(f"dy must be contiguous float32 {tuple(x.shape)} on {x.device}")
-    if x.device.type == "cpu":
-        return selective_scan_bwd_ref(dt, a, b, c, x, dy)
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan_bwd runs on cpu or cuda, not {x.device}")
-    if n not in STATE_WIDTHS:
-        raise ValueError(f"d_state {n} has no kernel instantiation {STATE_WIDTHS}")
-    layout = bwd_layout(di, n)
-    want = (B, -(-S // layout["time_chunk"]), di, n)
-    if states is None or tuple(states.shape) != want or states.dtype != torch.float32 \
-            or states.device != x.device or not states.is_contiguous():
-        raise ValueError(f"the CUDA backward needs the forward's float32 states {want}")
-    lib = _bwd_library()
-    ddt, dx = torch.empty_like(x), torch.empty_like(x)
-    da_part = torch.empty((B, di, n), dtype=torch.float32, device=x.device)
-    db_part, dc_part = (
-        torch.empty((layout["slices"], B, S, n), dtype=torch.float32, device=x.device)
-        for _ in range(2)
-    )
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.selective_scan_bwd_f32(
-            *(t.data_ptr() for t in (dt, a, b, c, x, dy, states, ddt, dx, da_part, db_part,
-                                     dc_part)),
-            B, S, di, n, stream,
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"selective_scan_bwd runs on cpu, cuda or meta, not {x.device}")
+    with context.kernel_work("selective_scan_bwd", functools.partial(scan_bwd_work, B, S, di, n)):
+        if x.device.type == "cpu":
+            return selective_scan_bwd_ref(dt, a, b, c, x, dy)
+        if n not in STATE_WIDTHS:
+            raise ValueError(f"d_state {n} has no kernel instantiation {STATE_WIDTHS}")
+        if x.device.type == "meta":
+            layout = {"time_chunk": TIME_CHUNK, "slices": bwd_slices(di, n)}
+        else:
+            layout = bwd_layout(di, n)
+        want = (B, -(-S // layout["time_chunk"]), di, n)
+        if states is None or tuple(states.shape) != want or states.dtype != torch.float32 \
+                or states.device != x.device or not states.is_contiguous():
+            raise ValueError(f"the CUDA backward needs the forward's float32 states {want}")
+        ddt, dx = torch.empty_like(x), torch.empty_like(x)
+        da_part = torch.empty((B, di, n), dtype=torch.float32, device=x.device)
+        db_part, dc_part = (
+            torch.empty((layout["slices"], B, S, n), dtype=torch.float32, device=x.device)
+            for _ in range(2)
         )
-    if rc != 0:
-        raise RuntimeError(f"selective_scan_bwd launch failed: cudaError {rc}")
-    selective_scan_bwd.launches += 1
+        if x.device.type == "cuda":
+            _launch_bwd(dt, a, b, c, x, dy, states, ddt, dx, da_part, db_part, dc_part)
     # the partials' sums, each in one fixed order
     return ddt, da_part.sum(dim=0), db_part.sum(dim=0), dc_part.sum(dim=0), dx
 
 
 selective_scan_bwd.launches = 0
+
+
+def _launch_bwd(dt, a, b, c, x, dy, states, ddt, dx, da_part, db_part, dc_part) -> None:
+    B, S, di = x.shape
+    lib = _bwd_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.selective_scan_bwd_f32(
+            *(t.data_ptr() for t in (dt, a, b, c, x, dy, states, ddt, dx, da_part, db_part,
+                                     dc_part)),
+            B, S, di, a.shape[1], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_bwd launch failed: cudaError {rc}")
+    selective_scan_bwd.launches += 1

@@ -7,13 +7,16 @@ When an input requires a gradient it runs as a ``torch.autograd.Function``
 whose forward also saves the chunk states and whose backward is the
 backward kernel (:func:`~repro_torch.kernels.mamba_scan.kernel.
 selective_scan_bwd`) on a card, the plain backward on the CPU; the casts
-around it carry the gradients back to the inputs' dtypes."""
+around it carry the gradients back to the inputs' dtypes.  The backward
+counts into the recording its forward ran under
+(``parallel.context.record``), whichever thread autograd runs it on."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.mamba_scan.kernel import selective_scan, selective_scan_bwd
+from repro_torch.parallel import context
 
 
 class _SelectiveScan(torch.autograd.Function):
@@ -21,12 +24,14 @@ class _SelectiveScan(torch.autograd.Function):
     def forward(ctx, dt, a, b, c, x):
         y, states = selective_scan(dt, a, b, c, x, save_states=True)
         ctx.save_for_backward(dt, a, b, c, x, states)
+        ctx.recording = context.current_recording()  # the backward's, on any thread
         return y
 
     @staticmethod
     def backward(ctx, dy):
         dt, a, b, c, x, states = ctx.saved_tensors
-        ddt, da, db, dc, dx = selective_scan_bwd(dt, a, b, c, x, dy.contiguous(), states)
+        with context.recording_as(ctx.recording):
+            ddt, da, db, dc, dx = selective_scan_bwd(dt, a, b, c, x, dy.contiguous(), states)
         return ddt, da, db, dc, dx
 
 

@@ -45,6 +45,19 @@ several ranks hold and each uses in part) passes through
 :func:`fan_out`, whose backward sums the cotangents (Megatron's "f");
 :func:`all_gather` says at each call which of its two adjoints it needs;
 :func:`all_to_all`'s backward is the inverse exchange.
+
+A run may be recorded (:func:`record`, the counter source of
+``core.meshsig.counters``): every collective a rank calls (an
+all-reduce, an all-gather or an all-to-all; a reduce-scatter runs as an
+all-reduce and a slice, and is recorded so) appends a
+:class:`CollectiveRecord` first, and every kernel wrapper adds its own
+work (:func:`kernel_work`).  In ``"observe"`` mode the collective then
+runs; in ``"simulate"`` mode it does not: its result buffers, allocated
+as they always are, come back as they are, so one process can run a rank
+of any mesh on ``meta`` tensors under a layout-only :class:`Mesh`.  A
+collective's backward is recorded into the recording its forward ran
+under.  With no recording active, a collective or a kernel wrapper only
+reads this thread's empty slot.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ import itertools
 import math
 import threading
 from dataclasses import dataclass, field
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -114,6 +127,7 @@ class Mesh:
         # read on every collective: computed once
         object.__setattr__(self, "_shape", dict(zip(self.axis_names, self.sizes)))
         object.__setattr__(self, "_size", math.prod(self.sizes))
+        object.__setattr__(self, "_orders", {})
 
     @property
     def shape(self) -> dict[str, int]:
@@ -151,6 +165,19 @@ class Mesh:
             if a in shape:
                 idx = idx * shape[a] + coords[a]
         return idx
+
+    def gather_order(self, given: tuple[str, ...]) -> list[int]:
+        """For each index ``j`` over the axes ``given`` (in the order
+        given), the place among this rank's group over them (its ranks in
+        mesh order) of the rank of index ``j``; computed once per axes."""
+        if given not in self._orders:
+            axes = self.canonical(given)
+            mine = self.coords()
+            members = [q for q in range(self._size)
+                       if all(c == mine[a] for a, c in self.coords(q).items() if a not in axes)]
+            place = {self.axis_index(given, q): i for i, q in enumerate(members)}
+            self._orders[given] = [place[j] for j in range(len(members))]
+        return self._orders[given]
 
     def group(self, axes: Iterable[str]):
         axes = self.canonical(axes)
@@ -313,6 +340,112 @@ def tile(n: int, axes: Iterable[str], rank: int | None = None) -> tuple[int, int
 
 
 # ---------------------------------------------------------------------------
+# Recording
+# ---------------------------------------------------------------------------
+
+
+class CollectiveRecord(NamedTuple):
+    """One collective as a rank calls it: ``kind`` (``"all-reduce"``,
+    ``"all-gather"`` or ``"all-to-all"``), the reduction of an all-reduce
+    (``"sum"`` or ``"max"``; empty otherwise), the axes it spans in mesh
+    order, the ranks it spans, its result's bytes on this rank (an
+    all-gather's result is the gathered size) and the result's dtype."""
+
+    kind: str
+    reduce: str
+    axes: tuple[str, ...]
+    group: int
+    bytes: int
+    dtype: str
+
+
+class KernelWork(NamedTuple):
+    """One kernel call's work as its wrapper states it: its name, its
+    operations and the bytes it moves (operands read, results written)."""
+
+    name: str
+    flops: float
+    bytes: float
+
+
+class Recording:
+    """What a recorded run called, in order: its collectives and its
+    kernels' work.  ``simulate`` runs no collective (``meta`` tensors
+    only).  ``in_kernel`` is positive while a kernel wrapper runs its
+    body, whose own operations its :class:`KernelWork` stands for."""
+
+    def __init__(self, mode: str = "observe"):
+        if mode not in ("observe", "simulate"):
+            raise ValueError(f"a recording observes or simulates, not {mode!r}")
+        self.simulate = mode == "simulate"
+        self.collectives: list[CollectiveRecord] = []
+        self.kernels: list[KernelWork] = []
+        self.in_kernel = 0
+
+
+def current_recording() -> Recording | None:
+    return getattr(_STATE, "recording", None)
+
+
+@contextlib.contextmanager
+def recording_as(rec: Recording | None):
+    """Make ``rec`` (or none) this thread's recording inside the block."""
+    prev = current_recording()
+    _STATE.recording = rec
+    try:
+        yield rec
+    finally:
+        _STATE.recording = prev
+
+
+@contextlib.contextmanager
+def record(mode: str = "observe"):
+    """Record this thread's collectives and kernel work inside the block
+    into the yielded :class:`Recording` (``mode`` ``"observe"`` or
+    ``"simulate"``)."""
+    with recording_as(Recording(mode)) as rec:
+        yield rec
+
+
+def kernel_work(name: str, work):
+    """Around a kernel wrapper's body: with a recording active, adds the
+    kernel's work (``work()``, its ``(operations, bytes)``) to it and
+    marks the body as the kernel's; with none, a ``nullcontext`` and
+    ``work`` is not called."""
+    rec = current_recording()
+    if rec is None:
+        return contextlib.nullcontext()
+    flops, nbytes = work()
+    rec.kernels.append(KernelWork(name, float(flops), float(nbytes)))
+    return _in_kernel(rec)
+
+
+@contextlib.contextmanager
+def _in_kernel(rec: Recording):
+    rec.in_kernel += 1
+    try:
+        yield
+    finally:
+        rec.in_kernel -= 1
+
+
+def _record_collective(kind: str, result: torch.Tensor, mesh: "Mesh", axes: tuple[str, ...],
+           reduce: str = "", parts: int = 1) -> bool:
+    """Record a collective about to run (``parts`` results of
+    ``result``'s size), if a recording is active; whether it is to run
+    (not when simulated)."""
+    rec = current_recording()
+    if rec is None:
+        return True
+    if rec.simulate and result.device.type != "meta":
+        raise RuntimeError(f"a simulated collective takes meta tensors, not {result.device} ones")
+    rec.collectives.append(CollectiveRecord(
+        kind, reduce, axes, mesh.axes_size(axes), parts * result.numel() * result.element_size(),
+        str(result.dtype).removeprefix("torch.")))
+    return not rec.simulate
+
+
+# ---------------------------------------------------------------------------
 # Collectives (identity with no mesh, or over axes of one rank)
 # ---------------------------------------------------------------------------
 
@@ -337,7 +470,8 @@ def _sum(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...], *, owned: bool) -> 
     if wide is x and not owned:
         wide = wide.clone()
     wide = wide.contiguous()
-    dist.all_reduce(wide, group=mesh.group(axes))
+    if _record_collective("all-reduce", wide, mesh, axes, "sum"):
+        dist.all_reduce(wide, group=mesh.group(axes))
     return wide.to(x.dtype)
 
 
@@ -347,13 +481,10 @@ def _parts(x: torch.Tensor, mesh: Mesh, given: tuple[str, ...]) -> list[torch.Te
     axes = mesh.canonical(given)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.axes_size(axes))]
-    dist.all_gather(parts, x, group=mesh.group(axes))
+    if _record_collective("all-gather", x, mesh, axes, parts=len(parts)):
+        dist.all_gather(parts, x, group=mesh.group(axes))
     # the group's ranks come in mesh order; put them in the given order
-    mine = mesh.coords()
-    members = [q for q in range(mesh.size)
-               if all(c == mine[a] for a, c in mesh.coords(q).items() if a not in axes)]
-    place = {mesh.axis_index(given, q): i for i, q in enumerate(members)}
-    return [parts[place[j]] for j in range(len(parts))]
+    return [parts[i] for i in mesh.gather_order(tuple(given))]
 
 
 def _scatter_sum(g: torch.Tensor, mesh: Mesh, given: tuple[str, ...], dim: int) -> torch.Tensor:
@@ -386,15 +517,17 @@ class _FanOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx_, x, mesh, given, keys):
         ctx_.mesh, ctx_.given, ctx_.keys = mesh, given, keys
+        ctx_.recording = current_recording()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx_, g):
         mesh, given, keys = ctx_.mesh, ctx_.given, ctx_.keys
-        if len(set(keys)) == 1:
-            return _sum(g, mesh, mesh.canonical(given), owned=False), None, None, None
-        mine = keys[mesh.axis_index(given)]
-        held = [p for p, k in zip(_parts(g, mesh, given), keys) if k == mine]
+        with recording_as(ctx_.recording):
+            if len(set(keys)) == 1:
+                return _sum(g, mesh, mesh.canonical(given), owned=False), None, None, None
+            mine = keys[mesh.axis_index(given)]
+            held = [p for p, k in zip(_parts(g, mesh, given), keys) if k == mine]
         out = held[0].float()
         for p in held[1:]:
             out = out + p.float()
@@ -409,13 +542,15 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx_, x, mesh, given, dim, adjoint):
         ctx_.mesh, ctx_.given, ctx_.dim, ctx_.adjoint = mesh, given, dim, adjoint
+        ctx_.recording = current_recording()
         return torch.cat(_parts(x, mesh, given), dim=dim)
 
     @staticmethod
     def backward(ctx_, g):
         mesh, given, dim = ctx_.mesh, ctx_.given, ctx_.dim
         if ctx_.adjoint == "sum":
-            return _scatter_sum(g, mesh, given, dim), None, None, None, None
+            with recording_as(ctx_.recording):
+                return _scatter_sum(g, mesh, given, dim), None, None, None, None
         size = g.shape[dim] // mesh.axes_size(given)
         return g.narrow(dim, mesh.axis_index(given) * size, size), None, None, None, None
 
@@ -426,17 +561,20 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx_, x, mesh, axes):
         ctx_.mesh, ctx_.axes = mesh, axes
+        ctx_.recording = current_recording()
         return _exchange(x, mesh, axes)
 
     @staticmethod
     def backward(ctx_, g):
-        return _exchange(g, ctx_.mesh, ctx_.axes), None, None
+        with recording_as(ctx_.recording):
+            return _exchange(g, ctx_.mesh, ctx_.axes), None, None
 
 
 def _exchange(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...]) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=mesh.group(axes))
+    if _record_collective("all-to-all", out, mesh, axes):
+        dist.all_to_all_single(out, x, group=mesh.group(axes))
     return out
 
 
@@ -479,8 +617,10 @@ def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     card a bf16 or f16 product stays a half-precision GEMM that writes
     float32 (cuBLAS sums the products in float32 either way), so no
     float32 copy of the weights is made; elsewhere, and where autograd
-    needs the product's gradient, the operands are widened first."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and not (
+    needs the product's gradient, the operands are widened first.  A
+    ``meta`` product takes the card's branch, so a counted ``meta`` run
+    (``core.meshsig.counters``) sees the card's operations."""
+    if a.device.type in ("cuda", "meta") and a.dtype in (torch.bfloat16, torch.float16) and not (
             _needs_grad(a) or _needs_grad(b)):
         if b.dim() == 2:
             out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
@@ -521,7 +661,8 @@ def pmax(x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
     if _needs_grad(x):
         raise ValueError("pmax has no backward (it serves decode only)")
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    if _record_collective("all-reduce", out, mesh, axes, "max"):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(axes))
     return out
 
 

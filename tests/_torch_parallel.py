@@ -229,14 +229,16 @@ def lm_rank(rank: int, world: int, cases: list[dict], ref_path: str, steps_n: in
     under the prefill cell, a prefill, then cut under the decode cell (its
     sequence-sharded cache; 2-D tensor parallelism where the weights are
     not replicated) and ``steps_n`` teacher-forced decode steps; returns
-    the gathered logits, the greedy tokens and the prefill's dropped
-    assignments."""
+    the gathered logits, the greedy tokens, the prefill's dropped
+    assignments and the collectives the prefill and the first decode step
+    called (:func:`collective_log`, recorded in ``"observe"`` mode)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import lm_shards_from_reference
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import context as ctx
 
     ref, mesh_of, out = _load(ref_path), meshes(), {}
     share = mesh_lib.SERVE_REPLICATION_SHARE
@@ -250,7 +252,7 @@ def lm_rank(rank: int, world: int, cases: list[dict], ref_path: str, steps_n: in
         try:
             with mesh_lib.cell_context(mesh, cfg, ShapeConfig("p", S, B, "prefill")):
                 lm = lm_shards_from_reference(cfg, tree_of(ref, f"{tree}/params/"), device="cpu")
-                with moe_mod.drop_tally() as drops:
+                with moe_mod.drop_tally() as drops, ctx.record() as pre_rec:
                     prefill = steps.make_prefill_step(cfg)(lm, {"tokens": tokens})
             with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
                 # a decode cell of weights not replicated over data cuts them in 2-D
@@ -259,13 +261,17 @@ def lm_rank(rank: int, world: int, cases: list[dict], ref_path: str, steps_n: in
                 step = steps.make_decode_step(cfg)
                 logits, toks = [], []
                 for t in range(steps_n):
-                    nxt, lg, cache = step(lm, cache, tokens[:, t : t + 1], t)
+                    with ctx.record() as rec:
+                        nxt, lg, cache = step(lm, cache, tokens[:, t : t + 1], t)
+                    if t == 0:
+                        dec_rec = rec
                     logits.append(numpy_of(lg))
                     toks.append(nxt.numpy())
         finally:
             mesh_lib.SERVE_REPLICATION_SHARE = share
         out[name] = dict(prefill=numpy_of(prefill), decode=np.stack(logits),
-                         tokens=np.stack(toks), dropped=int(sum(int(d) for d in drops)))
+                         tokens=np.stack(toks), dropped=int(sum(int(d) for d in drops)),
+                         log=dict(prefill=collective_log(pre_rec), decode=collective_log(dec_rec)))
     return out
 
 
@@ -586,14 +592,16 @@ def train_case(arch: str, dtype: str, shape=(2, 4), *, accum: int = 1, impl: str
                 tol=F32_RTOL if dtype == "float32" else BF16_TOL)
 
 
-def train_history(cfg, lm, batch: dict, accum: int, *, counts_drops: bool = False):
+def train_history(cfg, lm, batch: dict, accum: int, *, log: list | None = None):
     """``TRAIN_STEPS`` of the port's ``make_train_step`` on ``lm`` (its
     shards under an active mesh) with ``batch``: ``(history, dropped)``,
     the history a dict of per-step metric lists and ``dropped`` the
-    assignments this rank's first step dropped."""
+    assignments this rank's first step dropped.  ``log`` receives the
+    collectives the first step called (:func:`collective_log`)."""
     from repro_torch.launch import steps
     from repro_torch.models import moe as moe_mod
     from repro_torch.optim import adamw
+    from repro_torch.parallel import context as ctx
 
     step = steps.make_train_step(cfg, accum=accum,
                                  lr_schedule=adamw.cosine_schedule(TRAIN_LR, 0, TRAIN_STEPS))
@@ -601,10 +609,12 @@ def train_history(cfg, lm, batch: dict, accum: int, *, counts_drops: bool = Fals
     hist: dict[str, list] = {}
     dropped = 0
     for s in range(TRAIN_STEPS):
-        with moe_mod.drop_tally() as drops:
+        with moe_mod.drop_tally() as drops, ctx.record() as rec:
             _, opt, metrics = step(lm, opt, batch, s)
         if s == 0:
             dropped = int(sum(int(d) for d in drops))
+            if log is not None:
+                log.extend(collective_log(rec))
         for k, v in metrics.items():
             hist.setdefault(k, []).append(float(v))
     assert int(opt.step) == TRAIN_STEPS
@@ -637,7 +647,8 @@ def _gradients(cfg, lm, batch: dict, aux_weight: float) -> dict:
 def train_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
     """Each training case on this rank's shards of its reference tree
     under the training cell: the history, the first step's dropped
-    assignments and (rank 0) the gathered parameters after the steps; a
+    assignments and collectives and (rank 0) the gathered parameters
+    after the steps; a
     case with ``aux_weight`` instead runs one ``loss_fn`` ``backward`` and
     returns (rank 0) the gathered gradients."""
     from repro_torch.configs.base import ShapeConfig
@@ -658,9 +669,11 @@ def train_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
                 grads = _gradients(cfg, lm, batch, case["aux_weight"])
                 out[case["name"]] = dict(grads=grads if rank == 0 else None)
                 continue
-            hist, dropped = train_history(cfg, lm, batch, case["accum"])
+            log: list = []
+            hist, dropped = train_history(cfg, lm, batch, case["accum"], log=log)
             final = lm_params_to_reference(cfg, lm)
-        out[case["name"]] = dict(hist=hist, dropped=dropped, final=_flat(final) if rank == 0 else None)
+        out[case["name"]] = dict(hist=hist, dropped=dropped, log=log,
+                                 final=_flat(final) if rank == 0 else None)
     return out
 
 
@@ -1031,14 +1044,16 @@ def _cache_leaves(cfg, cache) -> dict[str, np.ndarray]:
     return out
 
 
-def run_decode(cfg, lm, ref: dict, case: dict) -> tuple[np.ndarray, np.ndarray, object]:
+def run_decode(cfg, lm, ref: dict, case: dict, log: list | None = None
+               ) -> tuple[np.ndarray, np.ndarray, object]:
     """The port's teacher-forced decode of a case under the active cell
     (or none): ``(logits, greedy tokens, cache)``, whisper's cross cache
     filled by ``attention.cross_kv`` from the reference's encoder
-    output."""
+    output.  ``log`` receives the collectives the first step called."""
     from repro_torch.launch import steps
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
+    from repro_torch.parallel import context as ctx
 
     tokens = torch.as_tensor(ref[f"{case['name']}/tokens"])
     B, S = tokens.shape
@@ -1055,7 +1070,10 @@ def run_decode(cfg, lm, ref: dict, case: dict) -> tuple[np.ndarray, np.ndarray, 
     step = steps.make_decode_step(cfg)
     logits, toks = [], []
     for t in range(case["steps"]):
-        nxt, lg, cache = step(lm, cache, tokens[:, t : t + 1], t)
+        with ctx.record() as rec:
+            nxt, lg, cache = step(lm, cache, tokens[:, t : t + 1], t)
+        if t == 0 and log is not None:
+            log.extend(collective_log(rec))
         logits.append(numpy_of(lg))
         toks.append(nxt.numpy())
     return np.stack(logits), np.stack(toks), cache
@@ -1064,7 +1082,8 @@ def run_decode(cfg, lm, ref: dict, case: dict) -> tuple[np.ndarray, np.ndarray, 
 def decode_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict:
     """Each decode case on this rank: the prefill (``prefill`` cases) on
     the shards cut under the prefill cell, then the decode steps on those
-    cut under the decode cell; returns the logits, the greedy tokens, this
+    cut under the decode cell; returns the logits, the greedy tokens, the
+    first decode step's collectives, this
     rank's cache leaves, per dense leaf its elements here and whole and
     whether ``cast_for_compute`` left its shape, and (2-D cases) every
     leaf this rank holds and whether ``lm_params_to_reference`` gathers
@@ -1094,7 +1113,8 @@ def decode_rank(rank: int, world: int, cases: list[dict], ref_path: str) -> dict
                     res["prefill"] = numpy_of(steps.make_prefill_step(cfg)(lm, {"tokens": tokens}))
             with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
                 lm = mesh_lib.shard_params(cfg, whole)
-                res["decode"], res["tokens"], cache = run_decode(cfg, lm, ref, case)
+                res["log"] = []
+                res["decode"], res["tokens"], cache = run_decode(cfg, lm, ref, case, res["log"])
                 res["cache"] = _cache_leaves(cfg, cache)
                 cast = M.cast_for_compute(cfg, lm)
                 res["weights"] = {
@@ -1126,3 +1146,112 @@ def decode_without_mesh(ref: dict, case: dict) -> dict:
         out["prefill"] = numpy_of(steps.make_prefill_step(cfg)(lm, {"tokens": tokens}))
     out["decode"], _, _ = run_decode(cfg, lm, ref, case)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The same ranks on meta: the counter source's simulated collectives
+# ---------------------------------------------------------------------------
+
+
+def collective_log(rec) -> list[tuple]:
+    """A recording's collectives (``parallel.context.record``) as plain
+    tuples: kind, reduction, axes, ranks, result bytes, dtype."""
+    return [tuple(c) for c in rec.collectives]
+
+
+def _meta_rank(case: dict, rank: int):
+    """``(cfg, layout-only mesh at rank)`` of a case."""
+    from repro_torch.parallel import context as ctx
+
+    shape = tuple(case["shape"])
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return port_config(case), ctx.Mesh(names, shape, rank)
+
+
+def _meta_params(cfg, *, train: bool = False):
+    """This rank's shards of a whole model laid out on ``meta`` under the
+    active cell (``train``: trainable)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+
+    lm = mesh_lib.shard_params(cfg, M.init_params(cfg, torch.Generator(), device="meta"))
+    return M.train_mode(lm) if train else lm
+
+
+def _meta(shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lm_meta_log(case: dict, rank: int, tokens_shape: tuple) -> dict:
+    """What :func:`lm_rank` records of ``case`` on ``rank``, simulated on
+    ``meta`` under a layout-only mesh in this process: the prefill's
+    collectives and the first decode step's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import context as ctx
+
+    cfg, mesh = _meta_rank(case, rank)
+    B, S = tokens_shape
+    share = mesh_lib.SERVE_REPLICATION_SHARE
+    mesh_lib.SERVE_REPLICATION_SHARE = 0.0 if case.get("nogather") else share
+    try:
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("p", S, B, "prefill")):
+            lm = _meta_params(cfg)
+            with ctx.record("simulate") as pre:
+                steps.make_prefill_step(cfg)(lm, {"tokens": _meta((B, S))})
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
+            lm = _meta_params(cfg)
+            cache = M.init_cache(cfg, B, S, getattr(torch, case["cache_dtype"]), device="meta")
+            with ctx.record("simulate") as dec:
+                steps.make_decode_step(cfg)(lm, cache, _meta((B, 1)), 0)
+    finally:
+        mesh_lib.SERVE_REPLICATION_SHARE = share
+    return dict(prefill=collective_log(pre), decode=collective_log(dec))
+
+
+def train_meta_log(case: dict, rank: int, tokens_shape: tuple) -> list[tuple]:
+    """What :func:`train_rank` records of ``case``'s first step on
+    ``rank``, simulated on ``meta``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context as ctx
+
+    cfg, mesh = _meta_rank(case, rank)
+    B, S = tokens_shape
+    with mesh_lib.cell_context(mesh, cfg, ShapeConfig("t", S, B, "train")):
+        lm = _meta_params(cfg, train=True)
+        step = steps.make_train_step(cfg, accum=case["accum"],
+                                     lr_schedule=adamw.cosine_schedule(TRAIN_LR, 0, TRAIN_STEPS))
+        opt = adamw.init(steps.param_tree(lm), cfg.moment_dtype)
+        with ctx.record("simulate") as rec:
+            step(lm, opt, {"tokens": _meta((B, S)), "labels": _meta((B, S))}, 0)
+    return collective_log(rec)
+
+
+def decode_meta_log(case: dict, rank: int, tokens_shape: tuple) -> list[tuple]:
+    """What :func:`decode_rank` records of ``case``'s first decode step on
+    ``rank``, simulated on ``meta``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import context as ctx
+
+    cfg, mesh = _meta_rank(case, rank)
+    B, S = tokens_shape
+    share = mesh_lib.SERVE_REPLICATION_SHARE
+    mesh_lib.SERVE_REPLICATION_SHARE = 0.0 if case["two_d"] else share
+    try:
+        with mesh_lib.cell_context(mesh, cfg, ShapeConfig("d", S, B, "decode")):
+            lm = _meta_params(cfg)
+            dtype = getattr(torch, case["cache_dtype"])
+            cache = M.init_cache(cfg, B, case["frames"] or S, dtype, device="meta")
+            with ctx.record("simulate") as rec:
+                steps.make_decode_step(cfg)(lm, cache, _meta((B, 1)), 0)
+    finally:
+        mesh_lib.SERVE_REPLICATION_SHARE = share
+    return collective_log(rec)

@@ -5,7 +5,9 @@ search, the scheduler, the service's tiers, the reduced LMs' prefill
 (attention, mamba and MoE layers), the mamba decode step, the MoE
 dispatch, the calibration's paired batch, loss gradient and fit, the
 mesh-domain link fit, and a hot-swap of the service on the card against
-the same port code on the CPU.  Every test here is marked ``gpu`` and skips without a card; this
+the same port code on the CPU; the kernels' counted work on the card
+against their ``meta`` branches, and the counter source's count of a
+step on the card against ``meta``.  Every test here is marked ``gpu`` and skips without a card; this
 file imports neither JAX nor the JAX package, so it runs where only
 torch is installed:
 
@@ -1230,3 +1232,71 @@ def test_one_rank_collectives_pass_gradients_through(cuda, tmp_path):
     assert got == want
     for a, b in zip(got_params, want_params):
         assert torch.equal(a, b)
+
+
+def test_kernel_counts_on_the_card_equal_their_meta_branches(cuda):
+    """Each kernel wrapper counts the same work for a card call as for
+    the same call on ``meta``, whose branch allocates the card's outputs
+    (K1's with the log-sum-exp; K2's chunk states and partials) and
+    launches nothing."""
+    from repro_torch.parallel import context as ctx
+
+    rng = np.random.default_rng(5)
+
+    def pair(shape, dtype):
+        t = torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+        return t.to(cuda), torch.empty(shape, dtype=dtype, device="meta")
+
+    B, H, Kv, S, dh = 2, 8, 2, 300, 64
+    (q, qm), (k, km), (v, vm), (do, dom) = (
+        pair(s, torch.bfloat16) for s in ((B, H, S, dh), (B, Kv, S, dh), (B, Kv, S, dh),
+                                          (B, H, S, dh)))
+    runs = {}
+    for dev, (q_, k_, v_, do_) in (("cuda", (q, k, v, do)), ("meta", (qm, km, vm, dom))):
+        mode = "simulate" if dev == "meta" else "observe"
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        before = flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches
+        with ctx.record(mode) as rec:
+            out = flash_kernel.flash_attention(q_, k_, v_, window=128, lse=lse)
+            grads = flash_kernel.flash_attention_bwd(q_, k_, v_, out, do_, lse, window=128)
+        after = flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches
+        runs[dev] = (rec.kernels, [t.shape for t in (out, *grads)],
+                     tuple(a - b for a, b in zip(after, before)))
+    assert runs["cuda"][:2] == runs["meta"][:2]
+    assert runs["cuda"][2] == (1, 1) and runs["meta"][2] == (0, 0)
+
+    dt, a, b, c, x = _inputs(6, 2, 333, 100, 16, cuda)
+    dy = _inputs(7, 2, 333, 100, 16, cuda)[4]
+    runs = {}
+    for dev in ("cuda", "meta"):
+        args = [t.to(dev) for t in (dt, a, b, c, x, dy)]
+        mode = "simulate" if dev == "meta" else "observe"
+        with ctx.record(mode) as rec:
+            y, states = scan_kernel.selective_scan(*args[:5], save_states=True)
+            grads = scan_kernel.selective_scan_bwd(*args, states)
+        runs[dev] = (rec.kernels, [t.shape for t in (y, states, *grads)])
+    assert runs["cuda"] == runs["meta"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_counted_step_on_the_card_equals_meta(cuda, kind):
+    """The counter source at one rank: reduced llama3's step counted on
+    the card (``"observe"``) and on ``meta`` (``"simulate"``) gives equal
+    FLOPs, bytes and argument sizes, and no collective."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.meshsig.counters import count_program
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import context as ctx
+
+    cfg = get_config("llama3-8b").reduced()
+    shape = ShapeConfig("c", 32, 4, kind)
+    mesh = ctx.Mesh(("data", "model"), (1, 1), 0)
+    with mesh_lib.cell_context(mesh, cfg, shape):
+        fn, args, _ = dryrun.build_cell(cfg, shape, device="cuda")
+        card = count_program(fn, *args, mode="observe")
+    meta, _ = dryrun.profile_cell(cfg, shape, mesh)
+    assert card.flops == meta.flops and card.hbm_bytes == meta.hbm_bytes
+    assert card.kernels == meta.kernels
+    assert card.memory["argument_size_in_bytes"] == meta.memory["argument_size_in_bytes"]
+    assert not card.collectives and not meta.collectives

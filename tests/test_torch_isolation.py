@@ -56,6 +56,8 @@ def test_every_module_imports_without_jax_or_repro():
         "repro_torch.runtime.fault_tolerance",
         "repro_torch.parallel.context",
         "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun",
+        "repro_torch.core.meshsig.validate",
     } <= set(modules)
     script = textwrap.dedent(
         f"""
@@ -101,6 +103,44 @@ def test_no_source_file_names_jax_or_repro():
                 continue
             offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names if _forbidden(n)]
     assert not offenders, offenders
+
+
+def test_dry_run_and_validation_set_no_environment_at_import():
+    """The reference's ``dryrun`` and ``validate`` set ``XLA_FLAGS`` when
+    imported; the port's set nothing: a fresh interpreter's environment is
+    the same after importing them, and no source of the port writes
+    ``os.environ``."""
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        sys.path[:0] = [{str(ROOT / "src")!r}]
+        before = dict(os.environ)
+        import repro_torch.launch.dryrun, repro_torch.core.meshsig.validate
+        import repro_torch.core.meshsig.counters
+        assert dict(os.environ) == before, set(os.environ.items()) ^ set(before.items())
+        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+        print("clean")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+    writes = []
+    for path in sorted(PORT_DIR.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            target = None
+            if isinstance(node, (ast.Assign, ast.AugAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+                target = next((t for t in targets if isinstance(t, ast.Subscript)), None)
+                target = target and target.value
+            elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                    and node.func.attr in ("setdefault", "update", "putenv"):
+                target = node.func if node.func.attr == "putenv" else node.func.value
+            if target is not None and ("environ" in ast.unparse(target)
+                                       or ast.unparse(target).endswith("putenv")):
+                writes.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not writes, writes
 
 
 @pytest.fixture

@@ -100,8 +100,8 @@ def test_wrapper_rejects_bad_inputs():
         port_kernel.selective_scan(dt, a, b[:, :8], c, x)
     with pytest.raises(ValueError):
         port_kernel.selective_scan(dt[None], a, b, c, x[None])
-    with pytest.raises(ValueError):  # neither cpu nor cuda
-        port_kernel.selective_scan(*(v.to("meta") for v in (dt, a, b, c, x)))
+    with pytest.raises(ValueError):  # meta, as the card: a d_state with no kernel
+        port_kernel.selective_scan(*(v.to("meta") for v in _t(_inputs(5, 1, 16, 8, 6))))
 
 
 def _ref_scan_grads(arrays, dy):
@@ -158,6 +158,6 @@ def test_save_states_on_the_cpu_and_backward_checks():
     torch.testing.assert_close(y, port_kernel.selective_scan(*arrays), rtol=0, atol=0)
     with pytest.raises(ValueError):  # dy of the wrong shape
         port_kernel.selective_scan_bwd(*arrays, torch.zeros(1, 8, 8), None)
-    with pytest.raises(ValueError):  # neither cpu nor cuda
+    with pytest.raises(ValueError):  # meta, as the card: no saved states
         port_kernel.selective_scan_bwd(*(t.to("meta") for t in arrays),
                                        torch.zeros(1, 16, 8, device="meta"), None)

@@ -41,6 +41,7 @@ from _torch_parallel import (
     F32_RTOL,
     assert_logits,
     decode_case,
+    decode_meta_log,
     decode_rank,
     decode_without_mesh,
     run_ranks,
@@ -235,3 +236,16 @@ def test_two_d_decode_cut_is_the_reference_shard(runs, case):
             want = want if g is None else want[g]
             np.testing.assert_array_equal(value, want, err_msg=f"{name} {leaf} rank {r}")
         assert got[name]["round_trip_exact"], (name, r)  # gather_params after the cut
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_meta_ranks_run_the_gloo_ranks_collectives(runs, case):
+    """The counter source's rank (``meta`` tensors, a layout-only mesh,
+    this process, nothing run) calls exactly the collectives the gloo
+    rank's first decode step ran, in order (the sequence-sharded cache's
+    gathers, ``pmax`` and ``psum``s; 2-D tensor parallelism's sums over
+    both axes), at ranks 0 and 7."""
+    ref, ranks = runs
+    shape = ref[f"{case['name']}/tokens"].shape
+    for rank in (0, 7):
+        assert decode_meta_log(case, rank, shape) == ranks[rank][case["name"]]["log"], rank

@@ -22,6 +22,7 @@ from _torch_parallel import (
     check_against_port,
     check_lm_case,
     lm_case,
+    lm_meta_log,
     lm_rank,
     run_ranks,
     run_reference,
@@ -48,3 +49,15 @@ def test_ranks_match_reference_mesh_run(runs, case):
 @pytest.mark.parametrize("case", SELF, ids=[c["name"] for c in SELF])
 def test_ranks_match_port_without_mesh(runs, case):
     check_against_port(*runs, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
+def test_meta_ranks_run_the_gloo_ranks_collectives(runs, case):
+    """The counter source's rank (``meta`` tensors, a layout-only mesh,
+    this process, nothing run) calls exactly the collectives the gloo
+    rank ran, in order: the prefill's and the first decode step's, at
+    ranks 0 and 7."""
+    ref, ranks = runs
+    shape = ref[f"{case.get('tree', case['name'])}/tokens"].shape
+    for rank in (0, 7):
+        assert lm_meta_log(case, rank, shape) == ranks[rank][case["name"]]["log"], rank

@@ -46,6 +46,7 @@ from _torch_parallel import (
     run_ranks,
     run_reference,
     train_case,
+    train_meta_log,
     train_rank,
 )
 
@@ -137,3 +138,15 @@ def test_mesh_backward_gives_one_devices_gradient(runs, case):
     ref, ranks, _ = runs
     want = port_gradients_without_mesh(ref, case)
     assert_params(ranks[0][case["name"]]["grads"], want, F32_RTOL, case["name"])
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
+def test_meta_ranks_run_the_gloo_ranks_collectives(runs, case):
+    """The counter source's rank (``meta`` tensors, a layout-only mesh,
+    this process, nothing run) calls exactly the collectives the gloo
+    rank's first train step ran, in order, backward included, at ranks 0
+    and 7."""
+    ref, ranks, _ = runs
+    B, S1 = ref[f"{case['name']}/tokens"].shape
+    for rank in (0, 7):
+        assert train_meta_log(case, rank, (B, S1 - 1)) == ranks[rank][case["name"]]["log"], rank
