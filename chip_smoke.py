@@ -121,16 +121,19 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    lm_danube_train — h2o-danube-1.8b at full size in training: float32
    weights and moments, bf16 compute, 4 x 2,048 tokens in two
    micro-batches, six AdamW steps on one batch (the loss falls; K1 24
-   times forward and 24 times backward per micro-batch), tokens/s, peak
-   memory and one step under the profiler (K1 backward's share of the
-   step's device time below 20%); then ``TrainLoop`` with a
+   times backward and 48 times forward per micro-batch, the layers'
+   forwards recomputed in the backward), tokens/s, peak memory and one
+   step under the profiler (K1 backward's share of the step's device time
+   below 20%); the first two steps again keeping every activation
+   (``remat=False``), their losses, gradient norms and parameters bit-equal
+   to the recomputing run's, their peak and ms beside; then ``TrainLoop`` with a
    checkpoint at step 3 and a failure injected at step 4, whose resumed
    steps 4-6 and final parameters must equal the uninterrupted run's bit
    for bit;
    lm_falcon_mamba_train — falcon-mamba-7b at full width with 8 of its 64
    layers (AdamW's float32 state for all 64 would not fit on the card):
-   four steps at 2 x 2,048, the loss falls, K2 8 times forward and 8 times
-   backward a step;
+   four steps at 2 x 2,048, the loss falls, K2 16 times forward (8 of
+   them the recompute) and 8 times backward a step;
 16. lm_qwen3_moe — qwen3-moe-30b-a3b at full width and depth (48 layers
    of GQA 32:4 attention and 128 experts top-8, 61.1 GB of bf16 weights,
    alone on the card): prefill of 2 x 2048 tokens (K1 launched once per
@@ -175,8 +178,9 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    1e-6 of their totals); llama3-8b's prefill (4 x 2,048) and
    h2o-danube-1.8b's train step (4 x 2,048, accum 2) counted on the card
    (``"observe"``) and on ``meta`` at one rank: FLOPs equal, argument
-   bytes equal, the predicted peak within 10% of the card's, danube's
-   FLOPs within 1% of its operations count, no collective; every arch's
+   bytes equal, the predicted peak within 2% of the card's, danube's
+   FLOPs within 1% of its operations count (the recompute included), no
+   collective; every arch's
    ``prefill_32k`` and ``decode_32k`` dry-run cells on the 16 x 16 mesh.
 
 Every profile whose kernel has a launch counter is held to it
@@ -190,6 +194,7 @@ without the repository's ``src/`` beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import re
@@ -2943,6 +2948,21 @@ def train_path_run(fn):
     return out, {name: f.launches for name, f in counters.items()}
 
 
+@contextlib.contextmanager
+def no_remat():
+    """Every layer stack keeps all its activations inside (the model's
+    private ``remat=False``), as the port trained before it recomputed
+    its layer groups."""
+    from repro_torch.models import model as M
+
+    stack = M._stack
+    M._stack = functools.partial(stack, remat=False)
+    try:
+        yield
+    finally:
+        M._stack = stack
+
+
 def trainable(cfg, device, *, draw_on: str | None = None):
     """``(params, tree, opt)``: a trainable LM on ``device`` with float32
     master weights drawn from seed 0 on ``draw_on`` (default ``device``),
@@ -2961,9 +2981,10 @@ def trainable(cfg, device, *, draw_on: str | None = None):
 def phase_lm_reduced_train() -> None:
     """One float32 train step of each reduced arch on the card and on the
     port on the CPU, with the same weights and batch: the loss within rel
-    1e-4, the gradient's global norm within rel 1e-3, and on the card K1
-    forward and backward launched once per attention call (encoder,
-    decoder and cross) and K2 forward and backward once per mamba layer."""
+    1e-4, the gradient's global norm within rel 1e-3, and on the card K1's
+    and K2's backward launched once per attention call (encoder, decoder
+    and cross) and mamba layer, their forwards twice (the layer groups'
+    recompute, :func:`train_launches`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2999,7 +3020,7 @@ def phase_lm_reduced_train() -> None:
             grad_norm_rel_gap_vs_cpu=norm_gap,
             launches=counts,
         )
-        check(counts == {"k1": n_k1, "k1_bwd": n_k1, "k2": n_mamba, "k2_bwd": n_mamba},
+        check(counts == train_launches(n_k1, n_mamba),
               f"{name}: a train step launched {counts} for {n_k1} attention calls and "
               f"{n_mamba} mamba layers")
         check(loss_gap <= 1e-4, f"{name}: card loss differs from the CPU by rel {loss_gap}")
@@ -3020,18 +3041,43 @@ def first_step_drop(opt, metrics, b1: float = 0.9, max_norm: float = 1.0) -> dic
     return dict(lr=lr, grad_norm=norm, grad_l1=grad_l1, first_order_drop=lr * grad_l1)
 
 
+def train_launches(n_k1: int, n_k2: int) -> dict:
+    """The kernel launches of a training run whose forwards call K1
+    ``n_k1`` and K2 ``n_k2`` times: each backward once, and each forward
+    twice, since the backward recomputes every layer group's forward
+    (``models.model._stack``)."""
+    return {"k1": 2 * n_k1, "k1_bwd": n_k1, "k2": 2 * n_k2, "k2_bwd": n_k2}
+
+
+def group_tail_weights(cfg) -> int:
+    """The weights of a layer group's last product, which the backward's
+    recompute stops before (its result is no saved tensor): the last
+    layer's ``w_down``, or its mamba out-projection where it has no FFN."""
+    from repro_torch.models.model import slot_kinds
+
+    mixer, _, ffn = slot_kinds(cfg, cfg.group_size - 1)
+    if ffn == "dense":
+        return cfg.d_ff * cfg.d_model
+    if ffn == "none" and mixer == "mamba":
+        return cfg.d_inner * cfg.d_model
+    raise ValueError(f"{cfg.name}: a group ending in a {mixer} layer with a {ffn} FFN")
+
+
 def train_step_ops(cfg, B: int, S: int) -> float:
     """Operations of one training step: the forward's matrix products
     (every layer weight and the lm_head once per token) times three for
-    the backward's two, and K1's visible pairs forward (4 dh a pair) plus
-    its backward (2.5 times that)."""
+    the backward's two; the recompute of each layer group's forward, its
+    products once more but the group's last (:func:`group_tail_weights`);
+    and K1's visible pairs forward (4 dh a pair), once more in the
+    recompute, plus its backward (2.5 times the forward)."""
     from repro_torch.models.model import tree_param_count
 
     layer_weights = tree_param_count(cfg) - 2 * cfg.padded_vocab * cfg.d_model - cfg.d_model
     matmul = 6 * B * S * (layer_weights + cfg.d_model * cfg.padded_vocab)
+    recompute = 2 * B * S * (layer_weights - cfg.n_groups * group_tail_weights(cfg))
     n_attn, _ = layer_kinds(cfg)
     attn = 4 * cfg.head_dim * B * cfg.n_heads * attention_pairs(S, S, True, cfg.sliding_window)
-    return matmul + 3.5 * n_attn * attn
+    return matmul + recompute + (1 + 1 + 2.5) * n_attn * attn
 
 
 def phase_lm_danube_train() -> int:
@@ -3039,8 +3085,11 @@ def phase_lm_danube_train() -> int:
     window 4,096, 1.83 B parameters, nothing cut): float32 master weights
     and moments, bf16 compute, a global batch of 4 x 2,048 in two
     micro-batches.  Six AdamW steps on one fixed batch: the loss is finite
-    and falls, K1 launches 24 times forward and 24 times backward per
-    micro-batch.  Then the same six steps through ``TrainLoop`` with a
+    and falls, K1 launches 24 times backward and 48 times forward (the
+    layers' recompute) per micro-batch.  The first two steps again without
+    remat: their losses, gradient norms and parameters are the same bits
+    (K1 has no atomics), their peak and pace printed beside.  Then the
+    same six steps through ``TrainLoop`` with a
     checkpoint every 3 steps and a ``FailureInjector`` at step 4: the run
     resumes from step 3's checkpoint and reproduces steps 4-6's losses and
     the final parameters bit for bit.  One steady step under the profiler
@@ -3071,14 +3120,16 @@ def phase_lm_danube_train() -> int:
     state_gb = torch.cuda.memory_allocated() / 1e9
 
     # the main path's run: the first step
-    (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    # the step returns ``params`` itself: bound to ``params`` (not ``_``),
+    # the weights go with the ``del`` below
+    (params, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
     first = first_step_drop(opt, metrics)
     losses, walls = [float(metrics["loss"])], []
     grad_norms = [float(metrics["grad_norm"])]
     after_two = None
     for s in range(1, n_steps):
         t0 = time.perf_counter()
-        _, opt, metrics = step(params, opt, batch, s)
+        params, opt, metrics = step(params, opt, batch, s)
         losses.append(float(metrics["loss"]))  # a synchronise
         walls.append(time.perf_counter() - t0)
         grad_norms.append(float(metrics["grad_norm"]))
@@ -3087,9 +3138,9 @@ def phase_lm_danube_train() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     final = [p.detach().cpu() for p in params.parameters()]
     per_micro = cfg.n_layers
-    check(counts == {"k1": accum * per_micro, "k1_bwd": accum * per_micro, "k2": 0, "k2_bwd": 0},
-          f"danube train step launched {counts}, not {per_micro} K1 forward and backward "
-          f"per micro-batch")
+    check(counts == train_launches(accum * per_micro, 0),
+          f"danube train step launched {counts}, not {per_micro} K1 backward and twice as "
+          f"many forward a micro-batch")
     check(all(np.isfinite(losses)), f"danube losses are not finite: {losses}")
     check(losses[-1] < losses[0], f"danube loss does not fall: {losses}")
     ms_step = 1e3 * float(np.median(walls))
@@ -3099,7 +3150,23 @@ def phase_lm_danube_train() -> int:
     k1_bwd_share = profile["watched"]["ms"] / profile["device_ms"]
     ops = train_step_ops(cfg, B, S)
     del params, tree, opt, metrics
-    free_card()
+    remat_left_gb = free_card()
+
+    # the first two steps keeping every activation
+    params, tree, opt = trainable(cfg, "cuda")
+    plain_hist, plain_walls = [], []
+    with no_remat():
+        for s in range(2):
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch, s)
+            plain_hist.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+            plain_walls.append(time.perf_counter() - t0)
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_same = all(torch.equal(p.detach().cpu(), w)
+                     for p, w in zip(params.parameters(), after_two))
+    remat_hist = list(zip(losses[:2], grad_norms[:2]))
+    del params, tree, opt, metrics
+    plain_left_gb = free_card()
 
     # the same steps through TrainLoop, killed before step 4 and resumed
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
@@ -3151,6 +3218,11 @@ def phase_lm_danube_train() -> int:
         step_profile=profile,
         k1_backward_device_ms=profile["watched"]["ms"],
         k1_backward_share_of_device=k1_bwd_share,
+        no_remat=dict(history=plain_hist, remat_history=remat_hist,
+                      history_bit_equal=plain_hist == remat_hist,
+                      params_bit_equal=plain_same, peak_gb=plain_peak_gb,
+                      allocated_gb_before=remat_left_gb, allocated_gb_after=plain_left_gb,
+                      step_s_runs=plain_walls, ms_second_step=1e3 * plain_walls[1]),
         resume=dict(
             failed_at=4, checkpoint_step=saved, checkpoint_gb=ckpt_gb,
             first_run_s=first_s, resume_run_s=resume_s, end_step=end,
@@ -3160,6 +3232,9 @@ def phase_lm_danube_train() -> int:
             final_params_bit_equal=same_params,
         ),
     )
+    check(plain_hist == remat_hist,
+          f"danube's first two steps without remat {plain_hist} differ from {remat_hist}")
+    check(plain_same, "danube's parameters after two steps without remat differ")
     check(failed, "the injected failure at step 4 did not fire")
     check(saved == 3, f"the run killed at step 4 left checkpoint {saved}, not 3")
     check(end == n_steps and [h["step"] for h in history] == [3, 4, 5],
@@ -3179,7 +3254,8 @@ def phase_lm_falcon_mamba_train() -> int:
     all 7.27 B parameters (about 116 GB with the weights and gradients)
     exceeds the card's 80 GB: four steps at B=2 x 2,048, float32 master
     weights and moments, bf16 compute.  The loss is finite and falls, and
-    K2 launches 8 times forward and 8 times backward a step.  Returns the
+    K2 launches 8 times backward and 16 times forward a step (the layers'
+    recompute).  Returns the
     first step's launches and loss and the median ms a step."""
     import dataclasses
 
@@ -3216,8 +3292,9 @@ def phase_lm_falcon_mamba_train() -> int:
         walls.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms_step = 1e3 * float(np.median(walls))
-    check(counts == {"k1": 0, "k1_bwd": 0, "k2": cfg.n_layers, "k2_bwd": cfg.n_layers},
-          f"falcon train step launched {counts}, not {cfg.n_layers} K2 forward and backward")
+    check(counts == train_launches(0, cfg.n_layers),
+          f"falcon train step launched {counts}, not {cfg.n_layers} K2 backward and twice as "
+          f"many forward")
     check(all(np.isfinite(losses)), f"falcon losses are not finite: {losses}")
     check(losses[-1] < losses[0], f"falcon loss does not fall: {losses}")
     profile = device_profile(lambda: step(params, opt, batch, n_steps),
@@ -3677,7 +3754,7 @@ def phase_lm_mesh_train(danube: dict, falcon: dict) -> None:
             emit("lm_mesh_train_reduced", arch=cfg.name, mesh=mesh.shape, batch=B, seq=S,
                  card_history=card_hist, cpu_history=cpu_hist, loss_rel_gap_vs_cpu=loss_gap,
                  grad_norm_rel_gap_vs_cpu=norm_gap, launches=counts)
-            check(counts == {"k1": n_k1, "k1_bwd": n_k1, "k2": n_mamba, "k2_bwd": n_mamba},
+            check(counts == train_launches(n_k1, n_mamba),
                   f"{name}: a mesh train step launched {counts}")
             check(loss_gap <= 1e-4,
                   f"{name}: mesh train loss on the card differs from the CPU by rel {loss_gap}")

@@ -31,6 +31,22 @@ class CounterSample(NamedTuple):
     elapsed: torch.Tensor
     n_per_socket: torch.Tensor
 
+    @property
+    def sockets(self) -> int:
+        """The number of banks ``s``."""
+        return self.local_read.shape[-1]
+
+    def totals(self, direction: str) -> torch.Tensor:
+        """Total per-bank traffic of ``direction`` (``"read"``,
+        ``"write"`` or ``"combined"``; paper §5.3)."""
+        if direction == "read":
+            return self.local_read + self.remote_read
+        if direction == "write":
+            return self.local_write + self.remote_write
+        if direction == "combined":
+            return self.local_read + self.remote_read + self.local_write + self.remote_write
+        raise ValueError(f"unknown direction {direction!r}")
+
     def combined(self) -> "CounterSample":
         """Collapse reads and writes into the read slots (paper §6.2.1's
         combined-bandwidth signature); the write slots become zeros."""

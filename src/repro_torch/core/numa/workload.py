@@ -43,6 +43,14 @@ class Workload(NamedTuple):
         """The device every field lives on."""
         return self.read_static.device
 
+    def read_interleaved(self) -> torch.Tensor:
+        """Per-thread interleaved read fraction — the residual class."""
+        return 1.0 - self.read_static - self.read_local - self.read_per_thread
+
+    def write_interleaved(self) -> torch.Tensor:
+        """Per-thread interleaved write fraction — the residual class."""
+        return 1.0 - self.write_static - self.write_local - self.write_per_thread
+
 
 def mixed_workload(
     name: str,

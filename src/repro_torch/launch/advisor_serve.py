@@ -57,6 +57,17 @@ def signature_pool(
     return sigs
 
 
+def drive_async(service: AdvisorService, queries) -> tuple[list, float]:
+    """Open-loop load: submit the whole stream without waiting (concurrent
+    misses coalesce into micro-batches), then wait for every future.
+    ``queries`` is a list of ``(machine_or_handle, signature,
+    n_threads)``.  Returns (advice list in query order, wall seconds)."""
+    t0 = time.perf_counter()
+    futures = [service.submit(m, sig, n) for (m, sig, n) in queries]
+    results = [f.result() for f in futures]
+    return results, time.perf_counter() - t0
+
+
 def drive_threads(
     service: AdvisorService, queries, *, n_workers: int = 4,
     deadline_s: float | None = None,

@@ -57,10 +57,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
@@ -372,12 +374,40 @@ def _ffn(cfg: ModelConfig, layer: Block, x: torch.Tensor, kind: str, *, decode: 
 
 
 def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope: bool,
-           enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+           enc_out: torch.Tensor | None = None, remat: bool = True,
+           aux: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``layers`` over ``x``: each layer's mixer, then (with ``enc_out``)
     its cross-attention over the encoder output, then its FFN.  Returns
-    ``(x, aux)``, aux the summed MoE balance loss."""
+    ``(x, aux)``, aux the summed MoE balance loss (added to ``aux`` when
+    one is given).
+
+    When autograd records (a leaf or ``x`` requires a gradient), each
+    group of ``cfg.group_size`` layers, the reference's scan body, runs
+    under ``torch.utils.checkpoint`` with ``remat`` (the reference's
+    ``jax.checkpoint`` of the body), the balance loss carried from group
+    to group: the backward keeps each group's input and recomputes its
+    forward, K1's and K2's forward kernels included.  The recompute stops
+    once the last tensor the backward reads is back, so each group's
+    last product (its ``w_down``) is not recomputed, as XLA's is not.  It
+    runs under the thread state of the forward
+    (:func:`~repro_torch.parallel.context.thread_state`: mesh, rules, row
+    axes, recording), on whichever thread autograd runs it; the MoE's
+    drops it finds again are not tallied twice.  No layer draws random
+    numbers, so no generator state is kept for it.  Without autograd the
+    layers run one after the other, each activation freed as soon as the
+    next layer no longer needs it."""
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in layers.parameters())):
+        group = functools.partial(_stack, cfg, causal=causal, use_rope=use_rope, enc_out=enc_out,
+                                  remat=False)
+        for g in range(0, len(layers), cfg.group_size):
+            x, aux = checkpoint(group, layers[g:g + cfg.group_size], x, aux=aux,
+                                use_reentrant=False, preserve_rng_state=False,
+                                context_fn=_recompute_as_forward)
+        return x, aux
     positions = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(layers):
         mixer, akind, ffn = slot_kinds(cfg, i % cfg.group_size)
         h = rms_norm(x, layer.norm1, cfg.norm_eps)
@@ -395,6 +425,20 @@ def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope:
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+def _recompute_as_forward():
+    """``checkpoint``'s contexts: none around the forward, the forward's
+    thread state around the recompute (with a tally of its own, which the
+    recompute's drops go to)."""
+    state = ctx.thread_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        with ctx.use_thread_state(state), moe_mod.drop_tally():
+            yield
+
+    return contextlib.nullcontext(), recompute()
 
 
 @contextlib.contextmanager

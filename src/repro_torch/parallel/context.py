@@ -31,7 +31,11 @@ The mesh is :class:`Mesh`, a small class over the default process group:
 named axes and their sizes, this rank's place on them (ranks laid out
 row-major over the axes, as ``jax.make_mesh`` lays out devices) and one
 process group per set of axes that a collective may span.  The mesh and
-the rule table are thread-local, as in the reference.
+the rule table are thread-local, as in the reference;
+:func:`thread_state` and :func:`use_thread_state` carry them, with the
+batch's row axes and the recording, to another moment or thread (a layer
+group's recompute in the backward, which a card runs on autograd's
+thread).
 
 Every collective but :func:`pmax` (decode's, with no backward) is
 differentiable.  Its backward is the adjoint for a
@@ -309,6 +313,38 @@ def batch_axes() -> tuple[str, ...]:
     """The axes the current batch's rows are split over (none outside
     :func:`use_batch_rows`)."""
     return getattr(_STATE, "batch_axes", ())
+
+
+class ThreadState(NamedTuple):
+    """What this module keeps per thread: the mesh, the logical rules, the
+    batch's row axes and the recording."""
+
+    mesh: "Mesh | None"
+    rules: dict
+    batch_axes: tuple[str, ...]
+    recording: "Recording | None"
+
+
+def thread_state() -> ThreadState:
+    """This thread's state as it is now (the rules copied)."""
+    return ThreadState(current_mesh(), dict(_rules()), batch_axes(), current_recording())
+
+
+@contextlib.contextmanager
+def use_thread_state(state: ThreadState):
+    """Run the block under ``state`` (:func:`thread_state` of another
+    moment or thread); the thread's own state comes back after it."""
+    prev = {k: getattr(_STATE, k) for k in ThreadState._fields if hasattr(_STATE, k)}
+    for k, v in zip(ThreadState._fields, state):
+        setattr(_STATE, k, v)
+    try:
+        yield
+    finally:
+        for k in ThreadState._fields:
+            if k in prev:
+                setattr(_STATE, k, prev[k])
+            else:
+                delattr(_STATE, k)
 
 
 def local_rows(x: torch.Tensor, axes: tuple[str, ...] | None = None) -> torch.Tensor:

@@ -63,6 +63,11 @@ class LRUCache:
         with self._lock:
             return key in self._data
 
+    def clear(self) -> None:
+        """Drop every entry (the capacity stays)."""
+        with self._lock:
+            self._data.clear()
+
     def pop_where(self, pred) -> int:
         """Drop every entry whose *key* satisfies ``pred``; returns the
         number removed (the service's per-machine invalidation on a spec

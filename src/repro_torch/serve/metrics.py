@@ -58,6 +58,11 @@ class _LatencyRing:
     def values(self) -> np.ndarray:
         return self._buf[: min(self._n, self._buf.shape[0])]
 
+    @property
+    def count(self) -> int:
+        """Samples ever recorded (the ring keeps the latest ones)."""
+        return self._n
+
 
 class ServiceMetrics:
     """Thread-safe counters for one :class:`AdvisorService`.
@@ -139,6 +144,19 @@ class ServiceMetrics:
             return True
 
     # -- reading -----------------------------------------------------------
+
+    def latency_percentiles(self, tier: str | None = None, qs=(50.0, 99.0)) -> dict[str, float]:
+        """``{"p50": ..., "p99": ...}`` in seconds over the recent window
+        of one tier (every tier pooled when ``tier`` is None); NaN where
+        nothing was recorded."""
+        with self._lock:
+            if tier is None:
+                vals = np.concatenate([ring.values() for ring in self._latency.values()])
+            else:
+                vals = self._latency[tier].values().copy()
+        if vals.size == 0:
+            return {f"p{q:g}": float("nan") for q in qs}
+        return {f"p{q:g}": float(np.percentile(vals, q)) for q in qs}
 
     def snapshot(self) -> dict:
         """A JSON-ready view: per-tier counts and p50/p99 latency (ms),

@@ -113,6 +113,19 @@ def test_misfit_and_distance(name, bench, n):
     )
 
 
+@pytest.mark.parametrize("name,bench,n", CASES)
+def test_counter_sample_sockets_and_totals_match_reference(name, bench, n):
+    """``sockets`` and the per-bank ``totals`` of paper §5.3 on both runs
+    of the reference's profiling pair."""
+    for sample in _case(name, bench, n):
+        got = port_sample(sample)
+        assert got.sockets == sample.sockets == ref.MACHINES[name].n_nodes
+        for d in ("read", "write", "combined"):
+            assert_close(got.totals(d), sample.totals(d), rtol=1e-6, what=f"{name} {d}")
+    with pytest.raises(ValueError, match="unknown direction"):
+        got.totals("both")
+
+
 def test_batched_fit_equals_per_sample_fits():
     """Leading batch dimensions (the reference's vmap) fit each row as a
     separate call would."""

@@ -184,8 +184,14 @@ def test_flops_at_one_rank_by_hand():
         "bytes": cfg.n_layers * 2 * 2 * T * (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim}
     train, meta = dryrun.profile_cell(cfg, ShapeConfig("t", S, B, "train"), mesh)
     assert meta["accum"] == 2
-    # forward products and their two gradients; K1 forward, and 2.5 times it backward
-    assert train.flops == 6 * T * (W + cfg.d_model * cfg.padded_vocab) + 3.5 * attn
+    forward = 2 * T * (W + cfg.d_model * cfg.padded_vocab)  # the layers' products, the head
+    gradients = 2 * forward  # each product's two gradient products
+    # the backward recomputes each layer group (one layer in llama3): its
+    # products once more but the group's last, w_down (T x d_ff x d_model)
+    recomputed = 2 * T * W - cfg.n_layers * 2 * T * cfg.d_ff * cfg.d_model
+    # K1: the forward, its recompute, and the backward at 2.5 times the forward
+    kernels = attn + attn + 2.5 * attn
+    assert train.flops == forward + gradients + recomputed + kernels
     assert not prefill.collectives and not train.collectives
 
 
@@ -295,15 +301,24 @@ def test_prefill_flops_match_the_references_hlo_outside_attention():
 def test_train_flops_match_the_references_hlo_outside_attention():
     """One device, two micro-batches: the reference's train-step dots
     are the port's products plus its attention's einsums (forward 2, the
-    rematerialised forward 2, backward 4, over whole blocks) plus the
-    other difference by design, the reference's remat (``jax.checkpoint``
-    on each layer group): its backward recomputes every layer product
-    but ``w_down``, whose result no gradient reads."""
+    rematerialised forward 2, backward 4, over whole blocks).  Both
+    recompute each layer group but its last product, ``w_down``, whose
+    result no gradient reads."""
+    _train_flops_against_hlo("llama3-8b")
+
+
+def test_train_flops_of_two_layer_groups_match_the_references_hlo():
+    """As above for reduced gemma2, whose groups hold two layers: the
+    first layer's ``w_down`` is recomputed, the second's is not."""
+    _train_flops_against_hlo("gemma2-9b")
+
+
+def _train_flops_against_hlo(arch):
     from repro.launch import steps as ref_steps
     from repro.models import model as RM
     from repro.optim import adamw as ref_adamw
 
-    rcfg, cfg = ref_base.get_config("llama3-8b").reduced(), get_config("llama3-8b").reduced()
+    rcfg, cfg = ref_base.get_config(arch).reduced(), get_config(arch).reduced()
     params = RM.init_params(rcfg, jax.random.PRNGKey(0))
     opt = ref_adamw.init(params, moment_dtype=rcfg.moment_dtype)
     tokens = jnp.zeros((HB, HS), jnp.int32)
@@ -316,10 +331,8 @@ def test_train_flops_match_the_references_hlo_outside_attention():
                       adamw.init(steps.param_tree(pt)), batch, 0)
     outside_k1 = c.flops - sum(c.kernels[k]["flops"]
                                for k in ("flash_attention", "flash_attention_bwd"))
-    d, T = cfg.d_model, HB * HS
     ref_attention = cfg.n_layers * 8 * (2 * HB * cfg.n_heads * HS * HS * cfg.head_dim)
-    ref_remat = 2 * T * (_layer_weights(cfg) - cfg.n_layers * cfg.d_ff * d)
-    assert outside_k1 == pytest.approx(ref_flops - ref_attention - ref_remat, rel=1e-6)
+    assert outside_k1 == pytest.approx(ref_flops - ref_attention, rel=1e-6)
 
 
 # ---------------------------------------------------------------------------

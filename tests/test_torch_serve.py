@@ -23,7 +23,8 @@ import repro.serve as ref_serve
 import repro_torch.core.numa as port
 from repro.launch.advisor_serve import mixed_stream as ref_mixed_stream
 from repro.launch.advisor_serve import signature_pool as ref_signature_pool
-from repro_torch.launch.advisor_serve import drive_threads, mixed_stream, signature_pool
+from repro.launch.advisor_serve import drive_async as ref_drive_async
+from repro_torch.launch.advisor_serve import drive_async, drive_threads, mixed_stream, signature_pool
 from repro_torch.serve import (
     Advice,
     AdvisorService,
@@ -102,6 +103,26 @@ def test_answers_match_reference_service(ref_service, service, name, n):
             )
     if name.endswith("throttled"):  # no symmetric twins: the same placements
         assert [g.placement for g in got] == [tuple(w.placement) for w in want]
+
+
+def test_drive_async_matches_reference(ref_service, service):
+    """The open-loop driver over a stream that repeats its signatures
+    (misses coalesce, repeats hit the cache or an in-flight future): the
+    same advice as the reference's driver, in query order."""
+    name, n = "E5-2630v3-8c-throttled", 10  # no symmetric twins: no ties
+    sigs = signature_pool(6, seed=21)
+    stream = [sigs[i] for i in (0, 1, 2, 0, 3, 4, 1, 5, 5, 2)]
+    got, wall = drive_async(service, [(port.MACHINES[name], s, n) for s in stream])
+    want, _ = ref_drive_async(
+        ref_service, [(ref.MACHINES[name], ref_serve.QuerySignature(*s), n) for s in stream])
+    assert wall > 0 and len(got) == len(want) == len(stream)
+    for g, w in zip(got, want):
+        assert isinstance(g, Advice)
+        assert g.placement == tuple(w.placement)
+        assert g.objective == pytest.approx(w.objective, rel=1e-5)
+        assert g.predicted_bandwidth == pytest.approx(w.predicted_bandwidth, rel=1e-5)
+    assert got[3] is got[0]  # a repeat is the first answer itself
+    assert sum(service.metrics.snapshot()["tier_counts"].values()) == len(stream)
 
 
 def test_main_path_group_matches_reference_on_one_batch(ref_service, service):
@@ -399,6 +420,45 @@ def test_lru_cache_thread_safety_hammer():
     for t in threads:
         t.join(timeout=30)
     assert not errors and len(c) <= 32
+
+
+def test_lru_cache_clear_matches_reference():
+    caches = LRUCache(capacity=3), ref_serve.LRUCache(capacity=3)
+    for c in caches:
+        for k in "abcd":
+            c.put(k, k.upper())
+        c.clear()
+        assert len(c) == 0 and "d" not in c and c.get("d") is None
+        for k in "xyzw":  # the capacity is unchanged
+            c.put(k, k)
+    assert caches[0].keys() == caches[1].keys() == ["y", "z", "w"]
+
+
+def test_latency_percentiles_match_reference():
+    """The same latencies into the reference's metrics and the port's: the
+    same keys and values per tier and pooled, over a window that has
+    wrapped; NaN where nothing was recorded.  The ring counts every
+    sample it was given."""
+    lat = np.random.default_rng(4).exponential(2e-3, 40)
+    both = ServiceMetrics(latency_window=16), ref_serve.ServiceMetrics(latency_window=16)
+    for m in both:
+        for qs in ((50.0, 99.0), (1.0, 90.0, 99.9)):
+            for tier in (None, "cache", "search"):
+                out = m.latency_percentiles(tier, qs)
+                assert list(out) == [f"p{q:g}" for q in qs] and all(np.isnan(list(out.values())))
+        for i, t in enumerate(lat):
+            m.record_query(("cache", "batch", "batch", "search")[i % 4], float(t))
+    port_m, ref_m = both
+    for qs in ((50.0, 99.0), (1.0, 90.0, 99.9)):
+        for tier in (None, "cache", "batch", "search", "schedule"):
+            got, want = port_m.latency_percentiles(tier, qs), ref_m.latency_percentiles(tier, qs)
+            assert list(got) == list(want)
+            np.testing.assert_array_equal(list(got.values()), list(want.values()))
+    assert port_m.latency_percentiles()["p50"] == pytest.approx(
+        ref_m.latency_percentiles()["p50"], rel=0)
+    for tier in ("cache", "batch", "search", "schedule", "degraded"):
+        assert port_m._latency[tier].count == ref_m._latency[tier].count
+    assert port_m._latency["batch"].count == 20 and port_m._latency["schedule"].count == 0
 
 
 def test_metrics_snapshot_and_reset():

@@ -203,6 +203,19 @@ def test_workload_batch_axis_equals_separate_calls():
                                        rtol=1e-6, atol=0, err_msg=f)
 
 
+@pytest.mark.parametrize("bench,n", [("Page rank", 16), ("CG", 8), ("Swim", 24)])
+def test_interleaved_fractions_match_reference(bench, n):
+    """``read_interleaved`` / ``write_interleaved``, the residual class,
+    on the reference's workload carried over value for value and on the
+    port's own ``benchmark_workload``."""
+    ref_wl = ref_benchmark(bench, n)
+    for wl in (port_workload(ref_wl), port_benchmark(bench, n)):
+        for d in ("read", "write"):
+            got, want = getattr(wl, f"{d}_interleaved")(), getattr(ref_wl, f"{d}_interleaved")()
+            assert got.dtype == torch.float32
+            assert_close(got, want, rtol=1e-6, atol=1e-7, what=f"{bench} {d}")
+
+
 def test_noise_from_generator_is_seeded():
     """Without a noise tensor a noisy call draws from the generator it is
     given: the same seed gives the same counters, another seed others."""
