@@ -308,10 +308,10 @@ def device_profile(fn, watch: str | None = None, top: int = 3,
             fn()
             sync()
         events = prof.events()
-        spans = sorted(
+        spans = sorted(  # the program's spans show on the device's timeline too
             (e.time_range.start, e.time_range.end, e.name)
             for e in events
-            if e.device_type == DeviceType.CUDA
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
         )
         per_name = {}
         for start, stop, name in spans:

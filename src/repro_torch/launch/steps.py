@@ -44,6 +44,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel import context as ctx
+from repro_torch.runtime.trace import span
 
 
 def param_tree(params: M.LM) -> dict:
@@ -117,29 +118,32 @@ def make_train_step(
     counted: dict = {}  # per mesh: which leaves this rank counts in the norm
 
     def train_step(params: M.LM, opt_state: adamw.AdamWState, batch: dict, step):
-        leaves = [p for p in params.parameters() if p.requires_grad]
-        for p in leaves:
-            p.grad = None
-        micros = _micro_batches(batch, accum)
-        by_name, l_sum, parts = _grads(cfg, params, micros)
-        tree = param_tree(params)
-        grads = _tree_of(by_name)
-        if accum == 1:
-            loss = l_sum
-        else:
-            with torch.no_grad():
-                adamw._map(lambda _, g: g.div_(accum), grads)
-            loss, parts = l_sum / accum, {}
-        mesh = ctx.current_mesh()
-        if mesh is not None and mesh not in counted:
-            counted[mesh] = _tree_of(mesh_lib.counted_leaves(cfg, params))
-        gnorm = adamw.clip_by_global_norm_(grads, max_grad_norm, counted=counted.get(mesh))
-        lr = lr_schedule(torch.as_tensor(step))
-        opt_state = adamw.update_(grads, opt_state, tree, lr=lr)
-        for p in leaves:
-            p.grad = None
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, **parts}
-        return params, opt_state, metrics
+        with span("train_step"):
+            leaves = [p for p in params.parameters() if p.requires_grad]
+            for p in leaves:
+                p.grad = None
+            micros = _micro_batches(batch, accum)
+            by_name, l_sum, parts = _grads(cfg, params, micros)
+            tree = param_tree(params)
+            grads = _tree_of(by_name)
+            with span("optimizer"):
+                if accum == 1:
+                    loss = l_sum
+                else:
+                    with torch.no_grad():
+                        adamw._map(lambda _, g: g.div_(accum), grads)
+                    loss, parts = l_sum / accum, {}
+                mesh = ctx.current_mesh()
+                if mesh is not None and mesh not in counted:
+                    counted[mesh] = _tree_of(mesh_lib.counted_leaves(cfg, params))
+                gnorm = adamw.clip_by_global_norm_(grads, max_grad_norm,
+                                                   counted=counted.get(mesh))
+                lr = lr_schedule(torch.as_tensor(step))
+                opt_state = adamw.update_(grads, opt_state, tree, lr=lr)
+            for p in leaves:
+                p.grad = None
+            metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, **parts}
+            return params, opt_state, metrics
 
     return train_step
 
@@ -147,7 +151,8 @@ def make_train_step(
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
-        return M.prefill(cfg, params, batch)
+        with span("prefill"):
+            return M.prefill(cfg, params, batch)
 
     return prefill_step
 

@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan.ops import ssm_scan
 from repro_torch.models.layers import weight
 from repro_torch.parallel import context as ctx
+from repro_torch.runtime.trace import span
 
 
 class Mamba(nn.Module):
@@ -144,7 +145,8 @@ def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
     version on the CPU; there is no fallback between them."""
     x = ctx.fan_out(x, ctx.physical_axes("tp"))
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, S, di) each
-    x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, None))
+    with span("mamba.conv"):
+        x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, None))
     dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
     xf = x_conv.float()
     y = ssm_scan(dt, a, b, c, xf)  # (B, S, di) float32

@@ -80,6 +80,7 @@ from repro_torch.models.layers import (
     weight,
 )
 from repro_torch.parallel import context as ctx
+from repro_torch.runtime.trace import span
 
 # Leaves kept in float32 regardless of the compute policy (besides the
 # norm scales): SSM dynamics (A_log and D are exp'd) and router logits
@@ -254,14 +255,35 @@ def cast_for_compute(cfg: ModelConfig, params: LM) -> LM:
     compute = torch_dtype(cfg.compute_dtype)
     train = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
     leaves = {}
-    for name, p in params.named_parameters():
-        t = p
-        if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute):
-            t = p.to(compute) if train else p.detach().to(compute)
-        t = _whole_over_batch(cfg, name, t, train)
-        if t is not p:
-            leaves[name] = t if train else weight(t.detach())
+    with span("cast"):
+        for name, p in params.named_parameters():
+            t = p
+            if not (_keeps_f32(name) or not p.dtype.is_floating_point or p.dtype == compute):
+                t = _CastToCompute.apply(p, compute) if train else p.detach().to(compute)
+            t = _whole_over_batch(cfg, name, t, train)
+            if t is not p:
+                leaves[name] = t if train else weight(t.detach())
     return _with_leaves(params, leaves) if leaves else params
+
+
+class _CastToCompute(torch.autograd.Function):
+    """The training cast of a master leaf to the compute dtype: ``p.to``
+    forward; backward, the gradient cast back to the leaf's dtype (the
+    bits of ``ToCopyBackward0``) under the span ``cast.backward``, so a
+    trace tells it from the loss's own casts."""
+
+    @staticmethod
+    def forward(ctx_, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx_.set_materialize_grads(False)
+        ctx_.master = p.dtype
+        return p.to(dtype)
+
+    @staticmethod
+    def backward(ctx_, g: torch.Tensor | None):
+        if g is None:
+            return None, None
+        with span("cast.backward"):
+            return g.to(ctx_.master), None
 
 
 def _with_leaves(module: nn.Module, leaves: dict[str, torch.Tensor], prefix: str = ""):
@@ -430,12 +452,12 @@ def _stack(cfg: ModelConfig, layers, x: torch.Tensor, *, causal: bool, use_rope:
 def _recompute_as_forward():
     """``checkpoint``'s contexts: none around the forward, the forward's
     thread state around the recompute (with a tally of its own, which the
-    recompute's drops go to)."""
+    recompute's drops go to), inside the span ``recompute``."""
     state = ctx.thread_state()
 
     @contextlib.contextmanager
     def recompute():
-        with ctx.use_thread_state(state), moe_mod.drop_tally():
+        with ctx.use_thread_state(state), moe_mod.drop_tally(), span("recompute"):
             yield
 
     return contextlib.nullcontext(), recompute()
