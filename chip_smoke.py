@@ -7,12 +7,13 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
 
 1. device — the card, its power limit and the float32 matmul settings;
 2. build — nvcc of every kernel source, K1's two backward sources (bf16
-   and float32) and K2's backward included (all started together), with
+   and float32), K2's backward and the mixer passes' source included (all
+   started together), with
    each library's tensor-core (HGMMA, HMMA) and exp2 (MUFU.EX2)
    instructions counted in its SASS (both bf16 K1 libraries must hold
    HGMMA), and each kernel's registers, shared memory, stack and local
-   bytes as the built library records them (no float32 K1 backward and no
-   N = 16 K2 backward kernel may spill);
+   bytes as the built library records them (no float32 K1 backward, no
+   N = 16 K2 backward and no mixer pass kernel may spill);
 3. selective_scan — the mamba-1 scan through ``ssm_scan`` at falcon-mamba-7b
    width (B=2, S=2048, d_inner=8192, N=16) and at a long prompt of one
    sequence (B=1, S=8192), each held against the plain version, with its
@@ -43,6 +44,11 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    backward at the two scan shapes, rel 1e-4, bit-equal, one launch a call,
    its time beside its bytes bound, its blocks an SM and the bytes its
    design adds;
+   mamba_mixer — the mixer's three prefill passes around K2 (conv with
+   its SiLU, dt softplus, D skip with the silu(z) gate) at
+   falcon-mamba-7b's width in bf16, B = 1 x 1,024 and x 8,192, each
+   against its plain version on the card within one bf16 ulp, one launch
+   a call, its time beside its bytes bound and the plain version's;
 5. quickstart — profile_pair -> fit_signature -> predict_counters on the
    E5-2699 v3 (the paper's pipeline; error < 5%);
 6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
@@ -113,8 +119,8 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
    logits held against the decode path's;
 15. lm_falcon_mamba — falcon-mamba-7b at full width and depth (64 mamba
-   layers, bf16): prefill of 2 x 2048 tokens (K2 launched once per
-   layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
+   layers, bf16): prefill of 2 x 2048 tokens (K2 and each mixer pass
+   launched once per layer), generate (4 x 64 prompt + 32 tokens), and the prefill's
    logits held against the decode path's in float32 and bf16, with the
    bf16 gap read at 8, 16, 32 and 64 layers and each bf16 path's
    distance from its float32 run;
@@ -413,10 +419,11 @@ def resource_usage(lib: Path) -> list[dict]:
 def phase_build() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_mixer import kernel as mixer_kernel
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 
     sources = [scan_kernel.SOURCE, scan_kernel.BWD_SOURCE, *flash_kernel.SOURCES.values(),
-               *flash_kernel.BWD_SOURCES.values()]
+               *flash_kernel.BWD_SOURCES.values(), mixer_kernel.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(build.build, sources))
@@ -449,7 +456,11 @@ def phase_build() -> None:
     check(len(usage[f32_fwd]) == 2 * len(flash_kernel.HEAD_DIMS),
           f"{f32_fwd}: {len(usage[f32_fwd])} kernels in its resource usage, want "
           f"{2 * len(flash_kernel.HEAD_DIMS)}")
-    checked = (usage[f32_fwd] + usage[f32_bwd]
+    # the mixer's three passes, each in two dtypes and two vector widths
+    mixer = mixer_kernel.SOURCE.name
+    check(len(usage[mixer]) == 12 and all("registers" in k for k in usage[mixer]),
+          f"{mixer}: {len(usage[mixer])} kernels in its resource usage, want 12")
+    checked = (usage[f32_fwd] + usage[f32_bwd] + usage[mixer]
                + [k for k in usage[scan_bwd] if "ILi16E" in k["kernel"]])
     check(any("ILi16E" in k["kernel"] for k in usage[scan_bwd]),
           f"{scan_bwd} has no N = 16 kernel in its resource usage")
@@ -1093,6 +1104,118 @@ def phase_selective_scan_backward() -> dict:
         del dt, a, b, c, x, dy, states
         torch.cuda.empty_cache()
     return row
+
+
+MIXER_SHAPES = (
+    # label, (B, S, d_inner): falcon-mamba-7b's width at the prefill cell's
+    # shortest and longest prompts, served in bf16
+    ("falcon-mamba-7b B=1 x 1,024", (1, 1024, 8192)),
+    ("falcon-mamba-7b B=1 x 8,192", (1, 8192, 8192)),
+)
+MIXER_PASSES = ("conv_silu", "dt_softplus", "mixer_gate")
+
+
+def mixer_pass_bytes(B: int, S: int, di: int, elem: int) -> dict[str, int]:
+    """Each mixer pass's inputs read once and outputs written once, at
+    ``elem`` bytes an element of the compute dtype: the conv reads xin,
+    its 4 taps and bias and writes x_conv and float32 xf; the dt pass
+    reads dt_raw and the float32 bias and writes float32 dt; the gate
+    reads float32 y, x_conv, z and float32 D and writes its output."""
+    n = B * S * di
+    return {
+        "conv_silu": n * (2 * elem + 4) + 5 * di * elem,
+        "dt_softplus": n * (elem + 4) + 4 * di,
+        "mixer_gate": n * (3 * elem + 4) + 4 * di,
+    }
+
+
+def ulps_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` over the spacing of got's dtype at
+    ``want`` (the smallest normal's spacing at zero)."""
+    fi = torch.finfo(got.dtype)
+    got, want = got.double(), want.double()
+    spacing = fi.eps * torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(fi.tiny))))
+    return float(((got - want).abs() / spacing).max())
+
+
+def phase_mamba_mixer() -> list[dict]:
+    """The mixer's three prefill passes around K2 at each of
+    ``MIXER_SHAPES`` in bf16, with in_proj's output as the model lays it
+    out (x and z halves read in place): each against its plain version run
+    on the card (the chain the model ran before them) within one bf16 ulp
+    at every element, xf the exact widening of x_conv, one launch a call.
+    Each time stands beside its bytes bound (:func:`mixer_pass_bytes`)
+    and the plain version's.  Returns the rows of the kernels line (the
+    longest shape's numbers; ``launches`` filled by the falcon prefill
+    phase)."""
+    from repro_torch.kernels.mamba_mixer import kernel as mk
+    from repro_torch.kernels.mamba_mixer.ref import (
+        conv_silu_ref,
+        dt_softplus_ref,
+        mixer_gate_ref,
+    )
+
+    dtype = torch.bfloat16
+    rows = {}
+    for label, (B, S, di) in MIXER_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(S)
+
+        def rnd(shape, scale=1.0, shift=0.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+
+        xz = rnd((B, S, 2 * di)).to(dtype)
+        xin, z = xz.chunk(2, dim=-1)
+        w, b = rnd((4, di), 0.5).to(dtype), rnd((di,), 0.1).to(dtype)
+        dt_raw, dt_bias = rnd((B, S, di), 2.0).to(dtype), rnd((di,), 1.0, -4.6)
+        y, D = rnd((B, S, di)), rnd((di,), 0.3, 1.0)
+        x_conv, xf = mk.conv_silu(xin, w, b)
+        calls = {
+            "conv_silu": (lambda: mk.conv_silu(xin, w, b), lambda: conv_silu_ref(xin, w, b)),
+            "dt_softplus": (lambda: mk.dt_softplus(dt_raw, dt_bias),
+                            lambda: dt_softplus_ref(dt_raw, dt_bias)),
+            "mixer_gate": (lambda: mk.mixer_gate(y, x_conv, D, z),
+                           lambda: mixer_gate_ref(y, xf, D, z)),
+        }
+        moved = mixer_pass_bytes(B, S, di, 2)
+        for name, (kernel_fn, plain_fn) in calls.items():
+            counter = getattr(mk, name)
+            counter.launches = 0
+            got = kernel_fn()
+            sync()
+            launches = counter.launches
+            want = plain_fn()
+            got, want = (got[0], want[0]) if name == "conv_silu" else (got, want)
+            ulps = ulps_gap(got, want.to(got.dtype)) if name != "dt_softplus" else \
+                ulps_gap(got.to(dtype), want.to(dtype))
+            equal_share = float((got == want).float().mean())
+            check(launches == 1, f"{label}: {name} launched {launches} kernels a call")
+            check(ulps <= 1.0, f"{label}: {name} lies {ulps} bf16 ulps from its plain version")
+            del got, want
+            kernel_ms = cuda_ms(kernel_fn, 50)
+            plain_ms = cuda_ms(plain_fn, 10)
+            bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+            emit("mamba_mixer", case=label, kernel=name, shape=[B, S, di], dtype="bfloat16",
+                 max_ulps=ulps, bit_equal_share=equal_share, launches_per_call=launches,
+                 kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                 bytes=moved[name], kernel_gb_per_s=moved[name] / kernel_ms / 1e6,
+                 share_of_bound=bound_ms / kernel_ms)
+            rows[name] = {
+                "name": name,
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/mamba_mixer/csrc/mamba_mixer.cu",
+                "replaces": None,  # the reference leaves the chain to XLA
+                "shape": [B, S, di],
+                "max_ulps": ulps,
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+        check(torch.equal(xf, x_conv.float()), f"{label}: xf is not x_conv widened")
+        del xz, xin, z, w, b, dt_raw, dt_bias, y, D, x_conv, xf
+        torch.cuda.empty_cache()
+    return [rows[name] for name in MIXER_PASSES]
 
 
 def phase_quickstart() -> None:
@@ -2785,12 +2908,14 @@ def phase_lm_serve() -> int:
     return path_launches
 
 
-def phase_lm_falcon_mamba() -> int:
+def phase_lm_falcon_mamba() -> tuple[int, dict[str, int]]:
     """falcon-mamba-7b at full width and depth on one card: 64 mamba
     layers, each prefill scan one K2 launch at the K2 cell's shape (B=2 x
-    2048, d_inner 8192, N 16).  Returns K2's launches in one prefill call
-    (the main path's run)."""
+    2048, d_inner 8192, N 16), and each of the mixer's three passes one
+    launch a layer.  Returns K2's and the passes' launches in one prefill
+    call (the main path's run)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_mixer import kernel as mixer_kernel
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model as M
 
@@ -2810,9 +2935,15 @@ def phase_lm_falcon_mamba() -> int:
                             device="cuda", dtype=torch.int32)
     batch = {"tokens": prompts}
     step = make_prefill_step(cfg)
+    passes = [getattr(mixer_kernel, name) for name in MIXER_PASSES]
+    for counter in passes:
+        counter.launches = 0
     logits, path_k1, path_k2 = path_run(lambda: step(params, batch))  # the main path's run
+    path_mixer = {name: c.launches for name, c in zip(MIXER_PASSES, passes)}
     check(path_k2 == cfg.n_layers,
           f"falcon prefill launched K2 {path_k2} times, not once per layer ({cfg.n_layers})")
+    check(path_mixer == dict.fromkeys(MIXER_PASSES, cfg.n_layers),
+          f"falcon prefill launched the mixer passes {path_mixer}, not once per layer")
     check(path_k1 == 0, f"falcon prefill launched K1 {path_k1} times in an attention-free model")
     check(logits.shape == (B, cfg.padded_vocab), f"falcon prefill logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "falcon prefill logits are not finite")
@@ -2836,6 +2967,7 @@ def phase_lm_falcon_mamba() -> int:
         init_s=init_s,
         batch=B, seq=S,
         k2_launches_per_call=path_k2,
+        mixer_pass_launches_per_call=path_mixer,
         prefill_s=min(walls),
         prefill_s_runs=walls,
         prefill_tokens_per_s=B * S / min(walls),
@@ -2929,7 +3061,7 @@ def phase_lm_falcon_mamba() -> int:
     # 1.35x the 5.9e-2 read on an H100, the same bits in every run
     check(gap <= 8e-2, f"falcon bf16 prefill and decode logits at position {prompt - 1} "
                        f"differ by rel {gap}")
-    return path_k2
+    return path_k2, path_mixer
 
 
 def train_path_run(fn):
@@ -3992,6 +4124,7 @@ def main() -> int:
         **phase_flash_attention_backward(),
     }
     scan_bwd_row = phase_selective_scan_backward()
+    mixer_rows = phase_mamba_mixer()
     phase_quickstart()
     phase_sweeps()
     phase_placement_search()
@@ -4014,7 +4147,10 @@ def main() -> int:
         "launches": phase_lm_serve(),  # one llama3-8b prefill call (bf16)
         **flash,
     }
-    scan_row["launches"] = phase_lm_falcon_mamba()  # one falcon-mamba-7b prefill call
+    # one falcon-mamba-7b prefill call
+    scan_row["launches"], mixer_launches = phase_lm_falcon_mamba()
+    for row in mixer_rows:
+        row["launches"] = mixer_launches[row["name"]]
     danube = phase_lm_danube_train()
     flash_bwd_row["launches"] = danube["counts"]["k1_bwd"]  # one danube train step
     falcon = phase_lm_falcon_mamba_train()
@@ -4022,7 +4158,8 @@ def main() -> int:
     phase_lm_mesh()  # runs phase_lm_qwen3_moe once its long decode caches are freed
     phase_lm_mesh_train(danube, falcon)
     phase_dryrun()
-    print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row]}), flush=True)
+    print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row, *mixer_rows]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

@@ -5,7 +5,11 @@ space block, its O(1) decode step and its conv / SSM cache.
   softplus dt, then the scan through ``ssm_scan``, which on a card
   launches K2 (the hand-written selective-scan kernel) and on the CPU
   runs its plain version; then the skip ``D``, the ``silu(z)`` gate and
-  the out-projection.  The reference's prefill scans in chunks of an
+  the out-projection.  Served on a card (autograd not recording), the
+  conv with its SiLU, the dt softplus and the skip with the gate are
+  three hand-written passes (``kernels/mamba_mixer``); elsewhere they are
+  the plain chain of ``kernels/mamba_mixer/ref.py``, which training's
+  backward runs through.  The reference's prefill scans in chunks of an
   associative scan with bf16 level tensors (its TPU route to a scan); the
   port's scan is K2, float32 throughout, so the two differ by the
   reference's bf16 rounding (about 6e-4 of the output's scale at the
@@ -35,6 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mamba_mixer import ops as mixer_ops
+from repro_torch.kernels.mamba_mixer.ref import (
+    causal_conv,
+    conv_silu_ref,
+    dt_softplus_ref,
+    mixer_gate_ref,
+)
 from repro_torch.kernels.mamba_scan.ops import ssm_scan
 from repro_torch.models.layers import weight
 from repro_torch.parallel import context as ctx
@@ -104,20 +115,15 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype, device) -
     )
 
 
-def _causal_conv(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, history: torch.Tensor | None
-) -> torch.Tensor:
-    """Depthwise causal conv over the sequence: ``x`` (B, S, di), kernel
-    ``w`` (K, di), preceded by ``history`` (B, K-1, di) or zeros; one
-    depthwise ``conv1d`` in x's dtype."""
-    k = w.shape[0]
-    if history is None:
-        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
-    else:
-        pad = history.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1).transpose(1, 2)  # (B, di, K-1+S)
-    out = F.conv1d(xp, w.T[:, None, :], b, groups=w.shape[1])
-    return out.transpose(1, 2)
+def _projections(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
+    """The pre-scan products: ``(dt_raw, b, c)``, ``dt_raw = dt @
+    dt_proj`` (B, S, di) in the compute dtype and b, c (B, S, N)
+    float32."""
+    dtr, n = cfg.dt_rank_actual, cfg.ssm_state
+    tp = ctx.physical_axes("tp")
+    x_dbl = ctx.fan_out(ctx.matmul_psum(x_conv, p.x_proj, tp), tp)  # (B, S, dtr + 2N)
+    dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
+    return dt @ p.dt_proj, b.float(), c.float()
 
 
 def _ssm_inputs(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
@@ -125,32 +131,51 @@ def _ssm_inputs(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
     ``dt_bias`` cast to the compute dtype before the add, softplus in the
     compute dtype, float32 after.  Returns ``(dt, a, b, c)``: dt (B, S,
     di), a = -exp(A_log) (di, N), b and c (B, S, N), all float32."""
-    dtr, n = cfg.dt_rank_actual, cfg.ssm_state
-    tp = ctx.physical_axes("tp")
-    x_dbl = ctx.fan_out(ctx.matmul_psum(x_conv, p.x_proj, tp), tp)  # (B, S, dtr + 2N)
-    dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
-    dt = F.softplus(dt @ p.dt_proj + p.dt_bias.to(x_conv.dtype)).float()
-    a = -torch.exp(p.A_log)
-    return dt, a, b.float(), c.float()
+    dt_raw, b, c = _projections(cfg, p, x_conv)
+    return dt_softplus_ref(dt_raw, p.dt_bias), -torch.exp(p.A_log), b, c
 
 
-def _gate(y: torch.Tensor, xf: torch.Tensor, D: torch.Tensor, z: torch.Tensor, dtype):
-    """``(y + x D) * silu(z)`` in float32, rounded to ``dtype``."""
-    return ((y + xf * D) * F.silu(z.float())).to(dtype)
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def _records_grad(x: torch.Tensor, p: Mamba) -> bool:
+    """Whether autograd records this call: grad mode on and the input or
+    a leaf requiring a gradient (training's forward and its recompute)."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.parameters()))
 
 
 def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
     """The full-sequence (prefill) mixer: ``x`` (B, S, D) -> (B, S, D) in
     x's dtype.  Its scan is K2 on a card (one launch) and the plain
-    version on the CPU; there is no fallback between them."""
+    version on the CPU; there is no fallback between them.  A call on a
+    card that autograd does not record (serving) runs the chain around
+    K2 as three hand-written passes (:func:`_serve_passes`); every other
+    call, the CPU, training and its recompute, runs it as plain tensor
+    code."""
     x = ctx.fan_out(x, ctx.physical_axes("tp"))
-    xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, S, di) each
+    xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, S, di) each, views
+    if _on_card(x) and not _records_grad(x, p):
+        return _serve_passes(cfg, p, xin, z)
     with span("mamba.conv"):
-        x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, None))
+        x_conv, xf = conv_silu_ref(xin, p.conv_w, p.conv_b)
     dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
-    xf = x_conv.float()
     y = ssm_scan(dt, a, b, c, xf)  # (B, S, di) float32
-    return _out_proj(_gate(y, xf, p.D, z, x.dtype), p)
+    return _out_proj(mixer_gate_ref(y, xf, p.D, z), p)
+
+
+def _serve_passes(cfg: ModelConfig, p: Mamba, xin: torch.Tensor, z: torch.Tensor):
+    """The mixer after ``in_proj`` as served on a card: the conv and SiLU,
+    the dt softplus and the D skip with the silu(z) gate each one kernel
+    (``kernels/mamba_mixer``, the same roundings as the plain chain),
+    ``xin`` and ``z`` read in place."""
+    with span("mamba.conv"):
+        x_conv, xf = mixer_ops.conv_silu(xin, p.conv_w, p.conv_b)
+    dt_raw, b, c = _projections(cfg, p, x_conv)
+    dt = mixer_ops.dt_softplus(dt_raw, p.dt_bias)
+    y = ssm_scan(dt, -torch.exp(p.A_log), b, c, xf)  # (B, S, di) float32
+    return _out_proj(mixer_ops.mixer_gate(y, x_conv, p.D, z), p)
 
 
 def _out_proj(y: torch.Tensor, p: Mamba) -> torch.Tensor:
@@ -164,7 +189,7 @@ def mamba_decode(
     recurrence from the cache's state.  Writes the new conv window and
     state into ``cache`` in place and returns ``(out (B, 1, D), cache)``."""
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, 1, di) each
-    x_conv = F.silu(_causal_conv(xin, p.conv_w, p.conv_b, cache.conv))
+    x_conv = F.silu(causal_conv(xin, p.conv_w, p.conv_b, cache.conv))
     new_conv = torch.cat([cache.conv[:, 1:], xin.to(cache.conv.dtype)], dim=1)
 
     dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
@@ -173,7 +198,7 @@ def mamba_decode(
     dbx = (dt[:, 0] * xf[:, 0])[..., None] * b[:, 0, None, :]
     h = cache.ssm * da + dbx
     y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None]
-    out = _out_proj(_gate(y, xf, p.D, z, x.dtype), p)
+    out = _out_proj(mixer_gate_ref(y, xf, p.D, z), p)
     cache.conv.copy_(new_conv)
     cache.ssm.copy_(h)
     return out, cache
