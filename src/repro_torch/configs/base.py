@@ -70,6 +70,7 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     rope_theta: float = 10_000.0
+    rotary: bool = True  # rotary embeddings in decoder self-attention (AI21-Jamba2-Mini: none)
 
     # --- MoE ---
     n_experts: int = 0
@@ -77,13 +78,17 @@ class ModelConfig:
     moe_every: int = 1  # MoE replaces the dense FFN every k-th layer
     capacity_factor: float = 1.25
     moe_impl: str = "gather"  # gather | a2a
+    moe_renormalize: bool = True  # the top-k probabilities scaled to sum to 1
+    moe_dropless: bool = False  # no capacity: every choice computed (one device only)
 
     # --- SSM (mamba1) ---
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
     dt_rank: int = 0  # derived ceil(d_model/16) when 0
+    ssm_inner_norms: bool = False  # RMSNorms of dt, B and C inside the mixer (jamba)
     attn_every: int = 0  # hybrid: attention mixer every k-th layer (jamba 1:7 -> 8)
+    attn_offset: int = 0  # hybrid: the attention mixer's slot within those k
 
     # --- enc-dec (whisper) ---
     encoder_layers: int = 0
@@ -131,7 +136,7 @@ class ModelConfig:
         if self.attn_pattern == "none":
             return "mamba"
         if self.attn_every:  # hybrid (jamba): attention every k-th layer
-            return "attn" if layer % self.attn_every == 0 else "mamba"
+            return "attn" if layer % self.attn_every == self.attn_offset else "mamba"
         return "attn"
 
     def attn_kind(self, layer: int) -> str:
@@ -228,6 +233,7 @@ class ModelConfig:
             + dtr * di + di  # dt_proj
             + di * n + di  # A_log, D
             + di * self.d_model  # out_proj
+            + (dtr + 2 * n if self.ssm_inner_norms else 0)  # dt, B, C norms
         )
 
     def _layer_params(self, layer: int, active_only: bool = False) -> int:

@@ -2,9 +2,11 @@
 space block, its O(1) decode step and its conv / SSM cache.
 
 * Prefill (:func:`mamba_mixer`): in-projection, causal depthwise conv,
-  softplus dt, then the scan through ``ssm_scan``, which on a card
-  launches K2 (the hand-written selective-scan kernel) and on the CPU
-  runs its plain version; then the skip ``D``, the ``silu(z)`` gate and
+  the x-projection (with ``cfg.ssm_inner_norms`` its dt, B and C
+  RMS-normalised, as the published jamba's are), softplus dt, then the
+  scan through ``ssm_scan``, which on a card launches K2 (the
+  hand-written selective-scan kernel) and on the CPU runs its plain
+  version; then the skip ``D``, the ``silu(z)`` gate and
   the out-projection.  Served on a card (autograd not recording), the
   conv with its SiLU, the dt softplus and the skip with the gate are
   three hand-written passes (``kernels/mamba_mixer``); elsewhere they are
@@ -47,7 +49,7 @@ from repro_torch.kernels.mamba_mixer.ref import (
     mixer_gate_ref,
 )
 from repro_torch.kernels.mamba_scan.ops import ssm_scan
-from repro_torch.models.layers import weight
+from repro_torch.models.layers import rms_norm, weight
 from repro_torch.parallel import context as ctx
 from repro_torch.runtime.trace import span
 
@@ -57,16 +59,22 @@ class Mamba(nn.Module):
     orientation: ``in_proj`` (D, 2 di), ``conv_w`` (K, di), ``conv_b``
     (di,), ``x_proj`` (di, dt_rank + 2N), ``dt_proj`` (dt_rank, di),
     ``dt_bias`` (di,), ``A_log`` (di, N), ``D`` (di,), ``out_proj``
-    (di, D)."""
+    (di, D); with ``cfg.ssm_inner_norms`` also the scales of the RMSNorms
+    of dt, B and C (``NORMS``: (dt_rank,), (N,), (N,), float32), ``None``
+    without."""
 
     LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
               "out_proj")
+    NORMS = ("dt_norm", "b_norm", "c_norm")
 
-    def __init__(self, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D, out_proj):
+    def __init__(self, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D, out_proj,
+                 dt_norm=None, b_norm=None, c_norm=None):
         super().__init__()
         for name, t in zip(self.LEAVES, (in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
                                          A_log, D, out_proj)):
             setattr(self, name, weight(t))
+        for name, t in zip(self.NORMS, (dt_norm, b_norm, c_norm)):
+            self.register_parameter(name, None if t is None else weight(t))
 
 
 def init_mamba_params(
@@ -80,7 +88,8 @@ def init_mamba_params(
     """Random leaves with the reference's scales, drawn in float32 from
     ``generator`` (on ``device``): the matmul weights and ``conv_b`` in
     ``dtype``, ``dt_bias`` in ``master`` (the parameter dtype: the compute
-    cast keeps it), ``A_log = log(1..N)`` and ``D = 1`` in float32."""
+    cast keeps it), ``A_log = log(1..N)`` and ``D = 1`` in float32, and
+    with ``cfg.ssm_inner_norms`` the norms' scales at 0 (``1 + w``)."""
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dtr, kconv = cfg.dt_rank_actual, cfg.ssm_conv
 
@@ -99,6 +108,8 @@ def init_mamba_params(
         torch.log(a),
         torch.ones(di, dtype=torch.float32, device=device),
         normal((di, d), di**-0.5),
+        *([torch.zeros(w, dtype=torch.float32, device=device) for w in (dtr, n, n)]
+          if cfg.ssm_inner_norms else ()),
     )
 
 
@@ -118,11 +129,18 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype, device) -
 def _projections(cfg: ModelConfig, p: Mamba, x_conv: torch.Tensor):
     """The pre-scan products: ``(dt_raw, b, c)``, ``dt_raw = dt @
     dt_proj`` (B, S, di) in the compute dtype and b, c (B, S, N)
-    float32."""
+    float32.  With ``cfg.ssm_inner_norms`` dt, B and C are each
+    RMS-normalised over its own width first (the published jamba's
+    ``dt_layernorm``, ``b_layernorm``, ``c_layernorm``): dt back in the
+    compute dtype for its product, B and C kept in float32."""
     dtr, n = cfg.dt_rank_actual, cfg.ssm_state
     tp = ctx.physical_axes("tp")
     x_dbl = ctx.fan_out(ctx.matmul_psum(x_conv, p.x_proj, tp), tp)  # (B, S, dtr + 2N)
     dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
+    if cfg.ssm_inner_norms:
+        dt = rms_norm(dt, p.dt_norm, cfg.norm_eps)
+        b = rms_norm(b.float(), p.b_norm, cfg.norm_eps)
+        c = rms_norm(c.float(), p.c_norm, cfg.norm_eps)
     return dt @ p.dt_proj, b.float(), c.float()
 
 

@@ -13,9 +13,11 @@ over precomputed frames plus sinusoidal positions, non-causal and without
 rotary embeddings; per decoder layer a cross-attention over the encoder
 output; learned decoder positions, no rotary in the decoder) and
 internvl2-2b (precomputed ViT patch embeddings projected and put before
-the text tokens).  As in the reference, the modality frontends are stubs:
-frames and patches arrive as inputs (``batch["enc_frames"]``,
-``batch["patch_embeds"]``).
+the text tokens).  A config may also place a hybrid's attention at
+another slot of its period (``attn_offset``) and leave out the rotary
+embedding (``rotary=False``), as AI21-Jamba2-Mini does.  As in the
+reference, the modality frontends are stubs: frames and patches arrive
+as inputs (``batch["enc_frames"]``, ``batch["patch_embeds"]``).
 
 Parameter names follow the reference tree (``embed.table``,
 ``layers.<i>.mixer.wq`` or ``layers.<i>.mixer.A_log``,
@@ -523,8 +525,8 @@ def _hidden(cfg: ModelConfig, params: LM, batch: dict) -> tuple[torch.Tensor, to
     if cfg.frontend == "vit_patches":
         patches = batch["patch_embeds"].to(x.dtype) @ params.frontend.proj
         x = torch.cat([patches, x], dim=1)  # image tokens first
-    x, aux = _stack(cfg, params.layers, x, causal=True, use_rope=not cfg.is_encoder_decoder,
-                    enc_out=enc_out)
+    x, aux = _stack(cfg, params.layers, x, causal=True,
+                    use_rope=cfg.rotary and not cfg.is_encoder_decoder, enc_out=enc_out)
     return rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -694,7 +696,7 @@ def _decode(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor, pos: int)
         h = rms_norm(x, layer.norm1, cfg.norm_eps)
         if mixer == "attn":
             h, layer_cache[i] = attn.mha_decode(cfg, layer.mixer, h, layer_cache[i], pos,
-                                                kind=akind, use_rope=not encdec)
+                                                kind=akind, use_rope=cfg.rotary and not encdec)
         else:
             h, layer_cache[i] = mb.mamba_decode(cfg, layer.mixer, h, layer_cache[i])
         x = x + h

@@ -14,6 +14,18 @@ expert, and one gather brings the outputs back, combined in the compute
 dtype as the reference does.  The token -> (expert, slot) assignment and
 the keep mask equal the reference's.
 
+A config may depart from the reference's routing as AI21-Jamba2-Mini's
+``JambaSparseMoeBlock`` does: ``moe_renormalize=False`` keeps the top-k
+probabilities as the softmax gave them, and ``moe_dropless=True`` drops
+nothing (:func:`_dropless`): the (token, choice) pairs are sorted by
+expert, so each expert's rows are contiguous, three grouped products
+(``torch._grouped_mm``, the offsets kept on the device, so no host sync)
+compute every expert over its own rows, and each token's pairs are
+combined in the order of its choices, so the result is deterministic.
+The dropless layer runs on one device; the mesh paths refuse it.  The
+spans ``moe.route``, ``moe.experts`` and ``moe.combine`` cover the
+one-device layer's three parts.
+
 Under a mesh (:mod:`repro_torch.parallel.context`) the expert rows lie
 over ``expert`` (``model``); where experts are fewer than its ranks, each
 is split along ``d_ff`` into ``moe_factor`` rows whose partial outputs
@@ -56,6 +68,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import weight
 from repro_torch.parallel import context as ctx
+from repro_torch.runtime.trace import span
 
 
 class MoE(nn.Module):
@@ -146,13 +159,26 @@ def _tally(dropped) -> None:
         drops.append(dropped())
 
 
+@contextlib.contextmanager
+def choice_record():
+    """Inside, every routing of this thread appends its expert choices
+    (``top_i``, (T, k) int64, by falling probability) to the yielded
+    list, one entry an MoE layer in the order the layers run."""
+    prev = getattr(_TALLY, "choices", None)
+    _TALLY.choices = choices = []
+    try:
+        yield choices
+    finally:
+        _TALLY.choices = prev
+
+
 # ---------------------------------------------------------------------------
 # Routing and the single-rank dispatch
 # ---------------------------------------------------------------------------
 
 
 class Routing(NamedTuple):
-    top_p: torch.Tensor  # (T, k) float32: renormalised probabilities of the chosen experts
+    top_p: torch.Tensor  # (T, k) float32: the chosen experts' (renormalised) probabilities
     top_i: torch.Tensor  # (T, k) int64: the chosen experts, by falling probability
     keep: torch.Tensor  # (T, E) bool: token t holds a slot of expert e
     slot: torch.Tensor  # (T, E) int64: its slot, or C (the overflow bin) where not kept
@@ -168,7 +194,11 @@ def _select(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
     # stable descending sort does the same (torch.topk promises no order)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :k], top_i[:, :k]
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.moe_renormalize:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    choices = getattr(_TALLY, "choices", None)
+    if choices is not None:
+        choices.append(top_i)
 
     me = probs.mean(dim=0)
     ones = torch.ones(T * k, dtype=torch.float32, device=x.device)
@@ -245,9 +275,9 @@ def _combine(y: torch.Tensor, flat, kept, top_p, dtype, *, partial: bool = False
     """Each token's kept choices' rows of ``y`` (rows, D), weighted by
     their gates in ``dtype`` (the reference's note c2) and summed; in
     float32 where the sum is a ``partial`` one that other ranks add to
-    (see ``context.matmul_psum``)."""
+    (see ``context.matmul_psum``).  ``kept`` ``None``: every choice."""
     T, D = flat.shape[0], y.shape[-1]
-    w = torch.where(kept, top_p, 0.0).to(dtype)
+    w = (top_p if kept is None else torch.where(kept, top_p, 0.0)).to(dtype)
     terms = y.index_select(0, flat.reshape(-1)).view(T, -1, D) * w[..., None]
     return terms.sum(dim=1, dtype=torch.float32 if partial else None)
 
@@ -267,10 +297,44 @@ def local_moe(
     """This rank's experts over ``x``: ``(out (T, D), aux)``, the
     counterpart of the reference's ``_local_moe``; ``out`` in x's dtype,
     or with ``partial`` (the rank holds some of the experts) the partial
-    combine in float32."""
-    buf, flat, kept, r = _dispatch(cfg, x, router, w_gate.shape[0], first_expert, factor)
-    y = _expert_ffn(buf, w_gate, w_up, w_down)
-    return _combine(y.view(-1, x.shape[1]), flat, kept, r.top_p, x.dtype, partial=partial), r.aux
+    combine in float32.  A dropless config takes :func:`_dropless`."""
+    if cfg.moe_dropless:
+        return _dropless(cfg, x, router, w_gate, w_up, w_down)
+    with span("moe.route"):
+        buf, flat, kept, r = _dispatch(cfg, x, router, w_gate.shape[0], first_expert, factor)
+    with span("moe.experts"):
+        y = _expert_ffn(buf, w_gate, w_up, w_down)
+    with span("moe.combine"):
+        out = _combine(y.view(-1, x.shape[1]), flat, kept, r.top_p, x.dtype, partial=partial)
+    return out, r.aux
+
+
+def _dropless(cfg: ModelConfig, x, router, w_gate, w_up, w_down):
+    """Every expert over every token that chose it, none dropped: ``(out
+    (T, D) in x's dtype, aux)``.  The T * k (token, choice) pairs are
+    sorted by expert (stably, so in token order within an expert), so
+    expert ``e``'s rows end at ``ends[e]``, found on the device; each of
+    the three products is one grouped product over those rows.  Each
+    pair's output row is then found through the inverse of the sort, and
+    each token's k rows are weighted and summed in the order of its
+    choices."""
+    T = x.shape[0]
+    k = cfg.experts_per_token
+    with span("moe.route"):
+        top_p, top_i, aux = _select(cfg, x, router)
+        by_expert, order = torch.sort(top_i.reshape(-1), stable=True)
+        experts = torch.arange(cfg.n_experts, device=x.device)
+        ends = torch.searchsorted(by_expert, experts, right=True).to(torch.int32)
+        rows = x.index_select(0, order // k)  # (T * k, D), grouped by expert
+    with span("moe.experts"):
+        h = F.silu(torch._grouped_mm(rows, w_gate, offs=ends)) * torch._grouped_mm(
+            rows, w_up, offs=ends)
+        y = torch._grouped_mm(h, w_down, offs=ends)  # (T * k, D)
+    with span("moe.combine"):
+        pair_row = torch.empty_like(order).scatter_(0, order,
+                                                    torch.arange(T * k, device=x.device))
+        out = _combine(y, pair_row.view(T, k), None, top_p, x.dtype)
+    return out, aux
 
 
 def _local_moe_sharded_weights(cfg, x, router, w_gate, w_up, w_down, first_expert: int,
@@ -294,7 +358,11 @@ def _local_moe_sharded_weights(cfg, x, router, w_gate, w_up, w_down, first_exper
 
 def _mesh_axes(cfg: ModelConfig):
     """``(expert axes, efsdp axes, rows' batch axes)`` of the active
-    mesh; raises ``ValueError`` on a mesh without an expert axis."""
+    mesh; raises ``ValueError`` on a mesh without an expert axis, and for
+    a dropless config (its experts run on one device)."""
+    if cfg.moe_dropless:
+        raise ValueError(f"{cfg.name}: the dropless MoE runs on one device; the mesh paths "
+                         f"route at a capacity")
     ep = ctx.physical_axes("expert")
     if not ep:
         raise ValueError(f"{cfg.name}: the mesh has no expert axis")

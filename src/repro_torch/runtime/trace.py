@@ -13,8 +13,11 @@ copy) and ``cast.backward`` (the training cast's gradient back to each
 master leaf's dtype, on autograd's thread), ``recompute`` (a layer
 group's recompute in the backward, on autograd's thread), ``optimizer``
 (the accumulation's division, the clip, the schedule and AdamW),
-``prefill`` (``make_prefill_step``'s step) and ``mamba.conv`` (the
-mixer's causal conv and its SiLU).
+``prefill`` (``make_prefill_step``'s step), ``mamba.conv`` (the
+mixer's causal conv and its SiLU) and, in a one-device MoE layer,
+``moe.route`` (the router, its top-k and the dispatch of the tokens to
+the experts), ``moe.experts`` (the experts' products) and ``moe.combine``
+(each token's weighted sum of its choices).
 """
 
 from __future__ import annotations

@@ -1302,3 +1302,76 @@ def test_counted_step_on_the_card_equals_meta(cuda, kind):
     assert card.kernels == meta.kernels
     assert card.memory["argument_size_in_bytes"] == meta.memory["argument_size_in_bytes"]
     assert not card.collectives and not meta.collectives
+
+
+def _tiny_hybrid(cuda):
+    """The tiny one-period AI21-Jamba2-Mini stage of the benchmark's tests,
+    bf16 weights as a server holds them."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the benchmark's package
+    from portbench import weights
+    from portbench.families import hybrid as fam
+    from portbench.tests import _tiny
+    from portbench.tests._tiny_hybrid import HYBRID
+
+    cfg = HYBRID
+    held = weights.make(fam.layout(cfg), torch.Generator(device=cuda).manual_seed(3),
+                        lambda name: weights.serve_dtype(fam, name, torch.bfloat16), cuda)
+    mcfg = _tiny.model_config(cfg)
+    return cfg, mcfg, fam.build(mcfg, held)
+
+
+def test_hybrid_served_request_makes_no_host_sync(cuda):
+    """One served prefill of the tiny Jamba2-Mini stage (attention through
+    K1, mamba through K2 and the mixer passes, the dropless experts
+    through the grouped products) under ``set_sync_debug_mode("error")``,
+    bit-equal to the request served before it."""
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    cfg, mcfg, lm = _tiny_hybrid(cuda)
+    step = steps.make_prefill_step(mcfg)
+    tokens = torch.randint(0, cfg["vocab_size"], (1, 200), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    first = step(lm, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with moe.choice_record() as choices:
+            again = step(lm, {"tokens": tokens})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(choices) == 4 and torch.equal(again, first) and bool(torch.isfinite(first).all())
+
+
+def test_mixer_without_inner_norms_keeps_its_bits(cuda):
+    """falcon-mamba-7b's reduced mixer served on the card (norms off) is
+    bit-equal to its pre-scan products computed as they were before the
+    inner norms existed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import mamba as mb
+    from repro_torch.parallel import context as ctx
+
+    cfg = get_config("falcon-mamba-7b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = mb.init_mamba_params(cfg, gen, torch.bfloat16, cuda)
+    x = torch.randn(2, 160, cfg.d_model, device=cuda, generator=gen).bfloat16()
+
+    def before(cfg_, p_, x_conv):
+        dtr, n = cfg_.dt_rank_actual, cfg_.ssm_state
+        tp = ctx.physical_axes("tp")
+        x_dbl = ctx.fan_out(ctx.matmul_psum(x_conv, p_.x_proj, tp), tp)
+        dt, b, c = x_dbl.split([dtr, n, n], dim=-1)
+        return dt @ p_.dt_proj, b.float(), c.float()
+
+    with torch.no_grad():
+        now = mb.mamba_mixer(cfg, p, x)
+        projections, mb._projections = mb._projections, before
+        try:
+            then = mb.mamba_mixer(cfg, p, x)
+        finally:
+            mb._projections = projections
+    assert p.dt_norm is None and torch.equal(now, then)

@@ -122,3 +122,25 @@ def test_cast_function_gives_the_bits_of_to(monkeypatch):
     compute = M.cast_for_compute(cfg, params)
     assert type(compute.lm_head.grad_fn).__name__ == "ToCopyBackward0"
     _assert_same_bits(want, _train(cfg))
+
+
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_spans_under_the_profiler(dropless):
+    """Reduced jamba's prefill (capacity path) and the same with the
+    dropless grouped path: one ``moe.route``, ``moe.experts`` and
+    ``moe.combine`` an MoE layer, and the same logits' bits with the
+    profiler on and off."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              moe_dropless=dropless)
+    lm = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step = steps.make_prefill_step(cfg)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = step(lm, {"tokens": _batch(cfg)["tokens"]})
+    moe = sum(M.slot_kinds(cfg, i % cfg.group_size)[2] == "moe" for i in range(cfg.n_layers))
+    mamba = sum(M.slot_kinds(cfg, i % cfg.group_size)[0] == "mamba" for i in range(cfg.n_layers))
+    assert moe > 0 and _spans(prof) == {"prefill": 1, "cast": 1, "mamba.conv": mamba,
+                                        "moe.route": moe, "moe.experts": moe,
+                                        "moe.combine": moe}
+    assert torch.equal(traced, step(lm, {"tokens": _batch(cfg)["tokens"]}))
