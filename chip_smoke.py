@@ -49,6 +49,12 @@ drives the port's paths on ``cuda`` in phases, one JSON line each:
    falcon-mamba-7b's width in bf16, B = 1 x 1,024 and x 8,192, each
    against its plain version on the card within one bf16 ulp, one launch
    a call, its time beside its bytes bound and the plain version's;
+   mamba_mixer_backward — the passes' three backward kernels at
+   falcon-mamba-7b's training micro-batch (B = 2 x 4,096, d_inner 8,192)
+   in bf16, each gradient's distance from the chain run in float32 within
+   twice the bf16 chain's own, two calls bit-equal, one launch a call, its
+   time beside its bytes bound and the plain chain's backward (autograd
+   through the chain, xf's two gradients added);
 5. quickstart — profile_pair -> fit_signature -> predict_counters on the
    E5-2699 v3 (the paper's pipeline; error < 5%);
 6. sweeps — the three placement sweeps through ``evaluate_batch``, noisy
@@ -456,10 +462,11 @@ def phase_build() -> None:
     check(len(usage[f32_fwd]) == 2 * len(flash_kernel.HEAD_DIMS),
           f"{f32_fwd}: {len(usage[f32_fwd])} kernels in its resource usage, want "
           f"{2 * len(flash_kernel.HEAD_DIMS)}")
-    # the mixer's three passes, each in two dtypes and two vector widths
+    # the mixer's three passes and their three backward passes, each in two
+    # dtypes and two vector widths, and the backward's channel sum in three
     mixer = mixer_kernel.SOURCE.name
-    check(len(usage[mixer]) == 12 and all("registers" in k for k in usage[mixer]),
-          f"{mixer}: {len(usage[mixer])} kernels in its resource usage, want 12")
+    check(len(usage[mixer]) == 27 and all("registers" in k for k in usage[mixer]),
+          f"{mixer}: {len(usage[mixer])} kernels in its resource usage, want 27")
     checked = (usage[f32_fwd] + usage[f32_bwd] + usage[mixer]
                + [k for k in usage[scan_bwd] if "ILi16E" in k["kernel"]])
     check(any("ILi16E" in k["kernel"] for k in usage[scan_bwd]),
@@ -1113,6 +1120,7 @@ MIXER_SHAPES = (
     ("falcon-mamba-7b B=1 x 8,192", (1, 8192, 8192)),
 )
 MIXER_PASSES = ("conv_silu", "dt_softplus", "mixer_gate")
+MIXER_BWD_PASSES = tuple(f"{name}_bwd" for name in MIXER_PASSES)
 
 
 def mixer_pass_bytes(B: int, S: int, di: int, elem: int) -> dict[str, int]:
@@ -1216,6 +1224,123 @@ def phase_mamba_mixer() -> list[dict]:
         del xz, xin, z, w, b, dt_raw, dt_bias, y, D, x_conv, xf
         torch.cuda.empty_cache()
     return [rows[name] for name in MIXER_PASSES]
+
+
+MIXER_BWD_SHAPE = (2, 4096, 8192)  # falcon-mamba-7b's training micro-batch
+
+
+def mixer_bwd_bytes(B: int, S: int, di: int, elem: int) -> dict[str, int]:
+    """Each backward pass's inputs read once and outputs written once, at
+    ``elem`` bytes an element of the compute dtype (the channel partials,
+    a few MB, left out): the conv's reads xin, x_conv's gradient and xf's
+    two float32 gradients and writes xin's; the dt softplus's reads
+    float32 ddt and dt_raw and writes dt_raw's; the gate's reads its
+    output's gradient, float32 y, x_conv and z and writes float32 dy and
+    dxf and dz."""
+    n = B * S * di
+    return {
+        "conv_silu_bwd": n * (3 * elem + 8) + 6 * di * elem,
+        "dt_softplus_bwd": n * (2 * elem + 4) + 8 * di,
+        "mixer_gate_bwd": n * (4 * elem + 12) + 8 * di,
+    }
+
+
+def phase_mamba_mixer_backward() -> list[dict]:
+    """The passes' backward kernels at :data:`MIXER_BWD_SHAPE` in bf16,
+    in_proj's output laid out as the model's (x and z halves read in
+    place): each gradient's largest distance from the chain run in
+    float32 on the same values, over that gradient's scale, within twice
+    the bf16 chain's own (at least 1e-5); two calls bit-equal; one launch
+    a call.  Each time stands beside its bytes bound
+    (:func:`mixer_bwd_bytes`) and the plain chain's backward (autograd's
+    vector-Jacobian product through ``ref.py``, from a recorded graph).
+    Returns the rows of the kernels line."""
+    from repro_torch.kernels.mamba_mixer import kernel as mk
+    from repro_torch.kernels.mamba_mixer.ref import (
+        conv_silu_ref,
+        dt_softplus_ref,
+        mixer_gate_ref,
+    )
+
+    dtype = torch.bfloat16
+    B, S, di = MIXER_BWD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(S + 1)
+
+    def rnd(shape, scale=1.0, shift=0.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dt)
+
+    shape = (B, S, di)
+    xin, z = rnd((B, S, 2 * di), dt=dtype).chunk(2, dim=-1)
+    w, b = rnd((4, di), 0.5, dt=dtype), rnd((di,), 0.1, dt=dtype)
+    dt_raw, dt_bias = rnd(shape, 2.0, dt=dtype), rnd((di,), 1.0, -4.6)
+    y, D = rnd(shape), rnd((di,), 0.3, 1.0)
+    x_conv = conv_silu_ref(xin, w, b)[0].contiguous()  # as the conv pass writes it
+    g_conv, g_xf, g_gate, g_dt, g_out = (rnd(shape, dt=dtype), rnd(shape), rnd(shape),
+                                         rnd(shape), rnd(shape, dt=dtype))
+    cases = {
+        "conv_silu_bwd": (lambda: mk.conv_silu_bwd(xin, w, b, g_conv, g_xf, g_gate),
+                          conv_silu_ref, (xin, w, b), (g_conv, g_xf, g_gate)),
+        "dt_softplus_bwd": (lambda: mk.dt_softplus_bwd(dt_raw, dt_bias, g_dt),
+                            dt_softplus_ref, (dt_raw, dt_bias), (g_dt,)),
+        "mixer_gate_bwd": (lambda: mk.mixer_gate_bwd(g_out, y, x_conv, D, z),
+                           mixer_gate_ref, (y, x_conv.float(), D, z), (g_out,)),
+    }
+    moved = mixer_bwd_bytes(B, S, di, 2)
+    rows = []
+    for name, (kernel_fn, fn, args, grads) in cases.items():
+        # the chain's output gradients: xf's two parts added as autograd adds them
+        out_grads = (grads[0], grads[1] + grads[2]) if name == "conv_silu_bwd" else grads
+        counter = getattr(mk, name)
+        counter.launches = 0
+        got = kernel_fn()
+        again = kernel_fn()
+        sync()
+        launches = counter.launches
+        chain = mk._vjp(fn, args, out_grads)
+        exact = mk._vjp(fn, tuple(a.float() for a in args), tuple(g.float() for g in out_grads))
+        gaps = []
+        for a, c, e in zip(got, chain, exact):
+            scale = float(e.abs().max()) or 1.0
+            gaps.append(dict(kernel=float((a.double() - e.double()).abs().max()) / scale,
+                             chain=float((c.double() - e.double()).abs().max()) / scale))
+        bit_equal = all(torch.equal(a, r) for a, r in zip(got, again))
+        del got, again, chain, exact
+        check(launches == 2, f"{name}: {launches} launches in two calls")
+        check(bit_equal, f"{name}: two calls differ")
+        for i, gap in enumerate(gaps):
+            check(gap["kernel"] <= max(2 * gap["chain"], 1e-5),
+                  f"{name}: gradient {i} lies {gap['kernel']} of its scale from float32, the "
+                  f"chain {gap['chain']}")
+        kernel_ms = cuda_ms(kernel_fn, 20)
+        with torch.enable_grad():
+            leaves = tuple(a.detach().requires_grad_() for a in args)
+            outs = fn(*leaves)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                outs, leaves, (grads[0], grads[1] + grads[2]) if name == "conv_silu_bwd"
+                else grads, retain_graph=True), 10)
+            del outs, leaves
+        bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        emit("mamba_mixer_backward", kernel=name, shape=[B, S, di], dtype="bfloat16",
+             gaps=gaps, bit_equal=bit_equal, launches_per_call=launches // 2,
+             kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+             bytes=moved[name], kernel_gb_per_s=moved[name] / kernel_ms / 1e6,
+             share_of_bound=bound_ms / kernel_ms)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_mixer/csrc/mamba_mixer.cu",
+            "replaces": None,  # the gradient of a chain the reference leaves to XLA
+            "shape": [B, S, di],
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
+    del xin, z, w, b, dt_raw, dt_bias, y, D, x_conv, g_conv, g_xf, g_gate, g_dt, g_out
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_quickstart() -> None:
@@ -3386,13 +3511,15 @@ def phase_lm_falcon_mamba_train() -> int:
     all 7.27 B parameters (about 116 GB with the weights and gradients)
     exceeds the card's 80 GB: four steps at B=2 x 2,048, float32 master
     weights and moments, bf16 compute.  The loss is finite and falls, and
-    K2 launches 8 times backward and 16 times forward a step (the layers'
-    recompute).  Returns the
-    first step's launches and loss and the median ms a step."""
+    K2 and each mixer pass launch 16 times forward a step (the layers'
+    recompute) and K2's and each pass's backward 8 times.  Returns the
+    first step's launches, the mixer passes' among them, its loss and the
+    median ms a step."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.mamba_mixer import kernel as mixer_kernel
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
 
@@ -3413,7 +3540,11 @@ def phase_lm_falcon_mamba_train() -> int:
     step = make_train_step(cfg, lr_schedule=adamw.cosine_schedule(1e-5, 0, n_steps))
     params, tree, opt = trainable(cfg, "cuda")
     count = sum(p.numel() for p in params.parameters())
+    passes = [getattr(mixer_kernel, n) for n in MIXER_PASSES + MIXER_BWD_PASSES]
+    before = [c.launches for c in passes]
     (_, opt, metrics), counts = train_path_run(lambda: step(params, opt, batch, 0))
+    mixer_counts = {n: c.launches - b
+                    for n, c, b in zip(MIXER_PASSES + MIXER_BWD_PASSES, passes, before)}
     first = first_step_drop(opt, metrics)
     losses, walls = [float(metrics["loss"])], []
     first_norm = float(metrics["grad_norm"])
@@ -3427,6 +3558,9 @@ def phase_lm_falcon_mamba_train() -> int:
     check(counts == train_launches(0, cfg.n_layers),
           f"falcon train step launched {counts}, not {cfg.n_layers} K2 backward and twice as "
           f"many forward")
+    check(mixer_counts == {**dict.fromkeys(MIXER_PASSES, 2 * cfg.n_layers),
+                           **dict.fromkeys(MIXER_BWD_PASSES, cfg.n_layers)},
+          f"falcon train step launched the mixer passes {mixer_counts}")
     check(all(np.isfinite(losses)), f"falcon losses are not finite: {losses}")
     check(losses[-1] < losses[0], f"falcon loss does not fall: {losses}")
     profile = device_profile(lambda: step(params, opt, batch, n_steps),
@@ -3446,6 +3580,7 @@ def phase_lm_falcon_mamba_train() -> int:
         allocated_gb_before=left_gb,
         batch=B, seq=S,
         launches_per_step=counts,
+        mixer_pass_launches_per_step=mixer_counts,
         losses=losses,
         first_step=dict(first, measured_drop=losses[0] - losses[1]),
         step_s_runs=walls,
@@ -3456,7 +3591,8 @@ def phase_lm_falcon_mamba_train() -> int:
         peak_gb=peak_gb,
         step_profile=profile,
     )
-    return dict(counts=counts, loss=losses[0], grad_norm=first_norm, ms_per_step=ms_step)
+    return dict(counts=counts, mixer_counts=mixer_counts, loss=losses[0], grad_norm=first_norm,
+                ms_per_step=ms_step)
 
 
 def phase_lm_qwen3_moe() -> None:
@@ -4125,6 +4261,7 @@ def main() -> int:
     }
     scan_bwd_row = phase_selective_scan_backward()
     mixer_rows = phase_mamba_mixer()
+    mixer_bwd_rows = phase_mamba_mixer_backward()
     phase_quickstart()
     phase_sweeps()
     phase_placement_search()
@@ -4155,10 +4292,13 @@ def main() -> int:
     flash_bwd_row["launches"] = danube["counts"]["k1_bwd"]  # one danube train step
     falcon = phase_lm_falcon_mamba_train()
     scan_bwd_row["launches"] = falcon["counts"]["k2_bwd"]  # one falcon (8 layers) step
+    for row in mixer_bwd_rows:
+        row["launches"] = falcon["mixer_counts"][row["name"]]
     phase_lm_mesh()  # runs phase_lm_qwen3_moe once its long decode caches are freed
     phase_lm_mesh_train(danube, falcon)
     phase_dryrun()
-    print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row, *mixer_rows]}),
+    print(json.dumps({"kernels": [scan_row, flash_row, flash_bwd_row, scan_bwd_row, *mixer_rows,
+                                  *mixer_bwd_rows]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -1,1 +1,2 @@
-"""The mamba mixer's prefill passes around K2: CUDA kernels, plain versions and wrappers."""
+"""The mamba mixer's passes around K2 and their backward passes: CUDA kernels, plain
+versions and wrappers."""

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the mamba mixer's prefill passes: the chain
-``models/mamba.py`` runs on the CPU and under autograd (the reference's
+"""Plain PyTorch versions of the mamba mixer's passes: the chain
+``models/mamba.py`` runs on the CPU and on ``meta`` (the reference's
 ``_causal_conv``, SiLU, ``_ssm_inputs``' softplus, the D skip and the
 silu(z) gate, in its rounding order), factored out so that the CUDA
-passes' wrappers run it on CPU tensors and the tests hold the kernels
+passes' wrappers run it on CPU tensors (the backward wrappers its
+vector-Jacobian product through autograd) and the tests hold the kernels
 against it."""
 
 from __future__ import annotations

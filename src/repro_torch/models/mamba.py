@@ -7,11 +7,13 @@ space block, its O(1) decode step and its conv / SSM cache.
   scan through ``ssm_scan``, which on a card launches K2 (the
   hand-written selective-scan kernel) and on the CPU runs its plain
   version; then the skip ``D``, the ``silu(z)`` gate and
-  the out-projection.  Served on a card (autograd not recording), the
-  conv with its SiLU, the dt softplus and the skip with the gate are
-  three hand-written passes (``kernels/mamba_mixer``); elsewhere they are
-  the plain chain of ``kernels/mamba_mixer/ref.py``, which training's
-  backward runs through.  The reference's prefill scans in chunks of an
+  the out-projection.  On a card the conv with its SiLU, the dt
+  softplus and the skip with the gate are three hand-written passes
+  (``kernels/mamba_mixer``); when autograd records the call (training's
+  forward and its recompute) each is an autograd Function whose backward
+  is a hand-written pass too.  On the CPU and on ``meta`` they are the
+  plain chain of ``kernels/mamba_mixer/ref.py``, which autograd
+  differentiates in training.  The reference's prefill scans in chunks of an
   associative scan with bf16 level tensors (its TPU route to a scan); the
   port's scan is K2, float32 throughout, so the two differ by the
   reference's bf16 rounding (about 6e-4 of the output's scale at the
@@ -157,25 +159,16 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def _records_grad(x: torch.Tensor, p: Mamba) -> bool:
-    """Whether autograd records this call: grad mode on and the input or
-    a leaf requiring a gradient (training's forward and its recompute)."""
-    return torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for t in p.parameters()))
-
-
 def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
     """The full-sequence (prefill) mixer: ``x`` (B, S, D) -> (B, S, D) in
     x's dtype.  Its scan is K2 on a card (one launch) and the plain
-    version on the CPU; there is no fallback between them.  A call on a
-    card that autograd does not record (serving) runs the chain around
-    K2 as three hand-written passes (:func:`_serve_passes`); every other
-    call, the CPU, training and its recompute, runs it as plain tensor
-    code."""
+    version on the CPU; there is no fallback between them.  On a card the
+    chain around K2 is three hand-written passes (:func:`_card_passes`),
+    served or trained; on the CPU it is plain tensor code."""
     x = ctx.fan_out(x, ctx.physical_axes("tp"))
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, S, di) each, views
-    if _on_card(x) and not _records_grad(x, p):
-        return _serve_passes(cfg, p, xin, z)
+    if _on_card(x):
+        return _card_passes(cfg, p, xin, z)
     with span("mamba.conv"):
         x_conv, xf = conv_silu_ref(xin, p.conv_w, p.conv_b)
     dt, a, b, c = _ssm_inputs(cfg, p, x_conv)
@@ -183,17 +176,19 @@ def mamba_mixer(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
     return _out_proj(mixer_gate_ref(y, xf, p.D, z), p)
 
 
-def _serve_passes(cfg: ModelConfig, p: Mamba, xin: torch.Tensor, z: torch.Tensor):
-    """The mixer after ``in_proj`` as served on a card: the conv and SiLU,
-    the dt softplus and the D skip with the silu(z) gate each one kernel
+def _card_passes(cfg: ModelConfig, p: Mamba, xin: torch.Tensor, z: torch.Tensor):
+    """The mixer after ``in_proj`` on a card: the conv and SiLU, the dt
+    softplus and the D skip with the silu(z) gate each one kernel
     (``kernels/mamba_mixer``, the same roundings as the plain chain),
-    ``xin`` and ``z`` read in place."""
+    ``xin`` and ``z`` read in place.  Served, each pass launches alone;
+    under autograd each is a Function whose backward is one more pass
+    (:mod:`~repro_torch.kernels.mamba_mixer.ops`)."""
     with span("mamba.conv"):
-        x_conv, xf = mixer_ops.conv_silu(xin, p.conv_w, p.conv_b)
+        x_conv, xf, xf_gate = mixer_ops.conv_silu(xin, p.conv_w, p.conv_b)
     dt_raw, b, c = _projections(cfg, p, x_conv)
     dt = mixer_ops.dt_softplus(dt_raw, p.dt_bias)
     y = ssm_scan(dt, -torch.exp(p.A_log), b, c, xf)  # (B, S, di) float32
-    return _out_proj(mixer_ops.mixer_gate(y, x_conv, p.D, z), p)
+    return _out_proj(mixer_ops.mixer_gate(y, x_conv, xf_gate, p.D, z), p)
 
 
 def _out_proj(y: torch.Tensor, p: Mamba) -> torch.Tensor:
